@@ -1,0 +1,211 @@
+"""Device glue of the SNP-phasing stage: refine on torch, score through the
+dense windowed K1 route and its CUDA kernel.
+
+The allele matrix, initial phasing, switch correction, weak-junction
+splitting and the host scorers are shared with ``duet_tpu.models.snp_phaser``.
+The port's single-device read scorer is the dense windowed route
+(``_haplotag_device`` with ``HAPLOTAG_DEVICE_MODE = "dense"``): reads are cut
+into fixed 256-row chunks per site window and ``HAPLOTAG_BATCH`` chunks go
+to ``ops.haplotag_kernel.haplotag_score_batch`` per launch.  Its outputs are
+pinned bit-identical to the host scorer ``_haplotag``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from duet_tpu.models.snp_phaser import (
+    HAPLOTAG_B,
+    HAPLOTAG_BATCH,
+    REFINE_CORRECT_ROUNDS,
+    AlleleMatrix,
+    PhaseResult,
+    _haplotag,
+    _initial_phase,
+    _power_refine,
+    _scatter_tagged,
+    _split_weak_junctions,
+    _switch_correct,
+    build_allele_matrix,
+)
+
+HAPLOTAG_DEVICE_MODE = "dense"
+CHUNK = 256            # read rows per scoring task
+_CPU = torch.device("cpu")
+
+
+def _haplotag_device(am: AlleleMatrix, phase: np.ndarray,
+                     block_id: np.ndarray, block_ps: np.ndarray,
+                     window: int = 2048, halo: int = 256,
+                     batch: int = HAPLOTAG_BATCH,
+                     device: torch.device = _CPU):
+    """Device-windowed read scoring (K1); mirrors the single-device dense
+    branch of ``duet_tpu.models.snp_phaser._haplotag_device``.
+
+    Sites split into windows of `window` columns plus a `halo` overlap;
+    each read is scored in the window of its first observation.  Reads
+    spanning past the halo, and windows with more than HAPLOTAG_B
+    phase-set blocks, take the host scorer, so outputs equal _haplotag.
+    Chunks are flushed `batch` at a time as ONE kernel launch of the fixed
+    shape (batch*256, S_w), with alleles int8 and weights / rhs built
+    directly as bfloat16."""
+    from duet_tpu.utils import dispatch
+    from duet_tpu_torch.ops.haplotag_kernel import haplotag_score_batch
+    from duet_tpu_torch.utils import devcost
+
+    n, m = am.n_reads, am.n_sites
+    read_hap = np.zeros(n, dtype=np.int8)
+    read_ps = np.full(n, -1, dtype=np.int64)
+    read_pc = np.full(n, -1, dtype=np.int32)
+    if m == 0 or len(am.row) == 0:
+        return read_hap, read_ps, read_pc
+
+    first_col = np.full(n, m, dtype=np.int64)
+    last_col = np.full(n, -1, dtype=np.int64)
+    np.minimum.at(first_col, am.row, am.col)
+    np.maximum.at(last_col, am.row, am.col)
+    has_obs = last_col >= 0
+    w_of_read = np.where(has_obs, first_col // window, -1)
+    span_ok = has_obs & (last_col < (w_of_read + 1) * window + halo)
+
+    S_w = -(-(window + halo) // 128) * 128
+    K = 2 + HAPLOTAG_B
+    w_of_obs = np.where(span_ok[am.row], w_of_read[am.row], -1)
+    obs_order = np.argsort(w_of_obs, kind="stable")
+    w_sorted = w_of_obs[obs_order]
+    host_rows: list[np.ndarray] = []  # over-full windows -> host scorer
+    tasks: list[tuple] = []  # pending (rows_chunk, A, Wt, rhs, present)
+
+    def flush_tasks() -> None:
+        """ONE padded launch for the pending chunks; at most `batch`
+        chunks are ever resident on the host."""
+        T = batch
+        A_b = np.zeros((T * CHUNK, S_w), dtype=np.int8)
+        W_b = torch.zeros((T * CHUNK, S_w), dtype=torch.bfloat16)
+        rhs_b = torch.zeros((T * S_w, K), dtype=torch.bfloat16)
+        for k, (_, A_c, W_c, rhs, _) in enumerate(tasks):
+            A_b[k * CHUNK:(k + 1) * CHUNK] = A_c
+            W_b[k * CHUNK:(k + 1) * CHUNK] = torch.from_numpy(W_c)
+            rhs_b[k * S_w:(k + 1) * S_w] = torch.from_numpy(rhs)
+        dispatch.record("haplotag", "device")
+        dev = devcost.put("haplotag", device, A_b, W_b, rhs_b)
+        out = devcost.run("haplotag", device, lambda: haplotag_score_batch(
+            *dev, n_tasks=T, n_blocks=HAPLOTAG_B))
+        hap_all, pc_all, best_all = (devcost.get("haplotag", x) for x in out)
+        for k, (rows_c, _, _, _, present_c) in enumerate(tasks):
+            s = slice(k * CHUNK, k * CHUNK + len(rows_c))
+            _scatter_tagged(read_hap, read_pc, read_ps, block_ps, present_c,
+                            rows_c, hap_all[s], pc_all[s], best_all[s])
+        tasks.clear()
+
+    for w in range(0, (m + window - 1) // window):
+        rows = np.flatnonzero((w_of_read == w) & span_ok)
+        if len(rows) == 0:
+            continue
+        lo = w * window
+        hi = min(lo + window + halo, m)
+        o0 = int(np.searchsorted(w_sorted, w, "left"))
+        o1 = int(np.searchsorted(w_sorted, w, "right"))
+        sel = obs_order[o0:o1]
+        blk = np.full(S_w, -1, dtype=np.int64)
+        blk[: hi - lo] = block_id[lo:hi]
+        present = np.unique(blk[blk >= 0])
+        if len(present) > HAPLOTAG_B:
+            host_rows.append(rows)
+            continue
+        row_local = np.searchsorted(rows, am.row[sel])
+        col_local = am.col[sel] - lo
+        R_pad = max(-(-len(rows) // CHUNK) * CHUNK, CHUNK)
+        A = np.zeros((R_pad, S_w), dtype=np.int8)
+        Wt = np.zeros((R_pad, S_w), dtype=np.float32)
+        A[row_local, col_local] = am.allele[sel]
+        Wt[row_local, col_local] = am.weight[sel]
+        # rhs = [phase | informative | block onehot], shared by the
+        # window's chunks
+        rhs = np.zeros((S_w, K), dtype=np.float32)
+        rhs[: hi - lo, 0] = phase[lo:hi]
+        rhs[:, 1] = rhs[:, 0] != 0
+        local_of = {int(b): i for i, b in enumerate(present)}
+        ok = np.flatnonzero(blk >= 0)
+        rhs[ok, [2 + local_of[int(b)] for b in blk[ok]]] = 1.0
+        for c0 in range(0, len(rows), CHUNK):
+            c1 = min(c0 + CHUNK, len(rows))
+            tasks.append((rows[c0:c1], A[c0:c0 + CHUNK],
+                          Wt[c0:c0 + CHUNK], rhs, present))
+            if len(tasks) == batch:
+                flush_tasks()
+    if tasks:
+        flush_tasks()
+
+    # host scorer for over-spanning reads and over-full windows
+    wide = np.flatnonzero(has_obs & ~span_ok)
+    if host_rows:
+        wide = np.union1d(wide, np.concatenate(host_rows))
+    if len(wide):
+        sub = np.isin(am.row, wide)
+        sub_am = AlleleMatrix(n, m, am.site_pos, am.row[sub], am.col[sub],
+                              am.allele[sub], am.weight[sub])
+        h, p, c = _haplotag(sub_am, phase, block_id, block_ps)
+        read_hap[wide] = h[wide]
+        read_ps[wide] = p[wide]
+        read_pc[wide] = c[wide]
+    return read_hap, read_ps, read_pc
+
+
+def phase_contig_core(cr, snps, cfg=None, sweeps: int = 2,
+                      use_device: bool = False, obs=None,
+                      min_junction_evidence: float = 0.0,
+                      device_min_nnz: int = 0,
+                      adaptive_junction_split: bool = False,
+                      protect_intervals=None,
+                      device: torch.device = _CPU):
+    """Mirrors ``duet_tpu.models.snp_phaser.phase_contig_core``:
+    (am, phase, block_id, block_ps) for one contig, with the refine sweeps
+    on `device` (``ops.sparse_power.power_refine_device``) when use_device
+    and the matrix clears `device_min_nnz`."""
+    from duet_tpu_torch.ops.sparse_power import (INT32_EXACT_NNZ,
+                                                 power_refine_device)
+
+    am = build_allele_matrix(cr, snps, cfg, obs=obs)
+    if len(am.row) < device_min_nnz:
+        use_device = False
+    phase, block_id, block_ps = _initial_phase(am)
+    if use_device and len(am.row) <= INT32_EXACT_NNZ:
+        def refine(am, phase, block_id, sweeps):
+            return power_refine_device(am, phase, block_id, sweeps, device)
+    else:
+        refine = _power_refine
+    # alternate majority refinement and suffix-flip correction to a fixed
+    # point
+    phase = refine(am, phase, block_id, sweeps)
+    for _ in range(REFINE_CORRECT_ROUNDS):
+        corrected = _switch_correct(am, phase, block_id)
+        changed = bool(np.any(corrected != phase))
+        phase = refine(am, corrected, block_id, sweeps)
+        if not changed:
+            break
+    new_id, new_ps = _split_weak_junctions(
+        am, phase, block_id, min_junction_evidence,
+        adaptive=adaptive_junction_split, protect=protect_intervals)
+    if new_ps is not None:
+        block_id, block_ps = new_id, new_ps
+    return am, phase, block_id, block_ps
+
+
+def score_contig(am: AlleleMatrix, phase: np.ndarray, block_id: np.ndarray,
+                 block_ps: np.ndarray, use_device: bool,
+                 device_min_nnz: int = 0,
+                 device: torch.device = _CPU) -> PhaseResult:
+    """Final read scoring of one contig: the dense device route when
+    use_device and the matrix clears `device_min_nnz`, else the host
+    scorer (the choice ``duet_tpu.models.snp_phaser.phase_contig`` makes)."""
+    if use_device and len(am.row) >= device_min_nnz:
+        tagging = _haplotag_device(am, phase, block_id, block_ps,
+                                   device=device)
+    else:
+        tagging = _haplotag(am, phase, block_id, block_ps)
+    read_hap, read_ps, read_pc = tagging
+    return PhaseResult(am.site_pos, phase, block_id, block_ps,
+                       read_hap, read_ps, read_pc, row_names=am.row_names)
+

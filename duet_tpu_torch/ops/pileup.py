@@ -1,0 +1,120 @@
+"""Device pileup from packed reads: expand, count, call and compact sites.
+
+The port of ``duet_tpu.ops.pileup``'s ``pileup_call_packed`` /
+``_packed_impl``, ``_hist_counts`` and ``call_sites``.  Inputs are the
+shared packers' two uploads (``duet_tpu.models.snp_caller``):
+
+  ops4        (4, K) int32  rows [ref_start, query_start (nibble index),
+                            length] of the match-op table; row 3's first 8
+                            slots carry [n_real, unused, min_depth, af_num,
+                            af_den, hom_num, hom_den, min_alt]
+  payload_ref (ns/2 + L,) u8 4-bit codes, one per read base (bits 0-2 the
+                            base, bit 3 the host-evaluated qual-pass bit),
+                            then L reference codes (4 = never call)
+
+Each lane of the static `total` maps to its op through a scatter-mark plus
+cumsum, the nibbles decode to (position, base) keys, an int32 scatter-add
+counts them into the (L, 4) histogram, and the called sites are compacted
+into one flat int32 readback of O(max_sites).  Integer counting has one
+answer, so the output is bit-identical to the JAX kernel and the host path.
+
+JAX drops out-of-bounds scatter updates and clamps gathers; torch raises
+on both, so every index here is masked or clamped explicitly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_I32 = torch.int32
+
+
+def _hist_counts(key: torch.Tensor, length: int) -> torch.Tensor:
+    """(length, 4) int32 histogram of `key` = pos*4 + base; keys outside
+    [0, 4*length) land in the sentinel bin, which is sliced away."""
+    sentinel = length * 4
+    key = torch.where((key < 0) | (key > sentinel), sentinel, key)
+    counts = torch.zeros(sentinel + 1, dtype=_I32, device=key.device)
+    counts.index_add_(0, key.long(), torch.ones_like(key, dtype=_I32))
+    return counts[:sentinel].reshape(length, 4)
+
+
+def call_sites(counts, ref_codes, min_depth, af_num, af_den, hom_num,
+               hom_den, min_alt):
+    """Elementwise site calling over the (L, 4) count image; returns
+    (is_site, is_het, alt_code, depth, alt_count) with the allele-frequency
+    cuts in exact integer form: af >= num/den <=> alt * den >= depth * num."""
+    L = counts.shape[0]
+    depth = counts.sum(dim=1, dtype=_I32)
+    ref_safe = torch.clamp(ref_codes.to(_I32), max=3)
+    idx = torch.arange(L, device=counts.device)
+    nonref = counts.clone()
+    nonref[idx, ref_safe.long()] = -1
+    alt_code = torch.argmax(nonref, dim=1).to(_I32)  # first max wins
+    alt_count = counts[idx, alt_code.long()]
+    is_site = ((depth >= min_depth)
+               & (alt_count * af_den >= depth * af_num)
+               & (alt_count >= min_alt)
+               & (ref_codes < 4)
+               & (alt_code != ref_safe))
+    is_het = alt_count * hom_den < depth * hom_num
+    return is_site, is_het & is_site, alt_code, depth, alt_count
+
+
+def _compact(mask: torch.Tensor, size: int) -> torch.Tensor:
+    """The first `size` indices where `mask` holds, zero-filled — the
+    fixed-shape ``jnp.nonzero(size=..., fill_value=0)``, without a host
+    sync: a cumsum gives each hit its slot, extra hits go to a junk slot."""
+    slot = torch.cumsum(mask.to(_I32), 0, dtype=_I32) - 1
+    keep = mask & (slot < size)
+    out = torch.zeros(size + 1, dtype=_I32, device=mask.device)
+    out.scatter_(0, torch.where(keep, slot, size).long(),
+                 torch.arange(mask.shape[0], dtype=_I32, device=mask.device))
+    return out[:size]
+
+
+def pileup_call_packed(ops4: torch.Tensor, payload_ref: torch.Tensor, *,
+                       total: int, length: int,
+                       max_sites: int) -> torch.Tensor:
+    """Expand, count, call and compact one window; returns one flat int32
+    tensor [n_sites, site_idx*max_sites, alt_code*, is_het*, depth*,
+    alt_count*].  Padding contract (host side): op rows padded so the
+    cumulative length covers `total` exactly, pad lanes masked by
+    lane < n_real."""
+    op_ref, op_q, op_len = ops4[0], ops4[1], ops4[2]
+    params = ops4[3]
+    n_real, min_depth = params[0], params[2]
+    af_num, af_den, hom_num, hom_den, min_alt = (
+        params[3], params[4], params[5], params[6], params[7])
+    nb = payload_ref.shape[0] - length
+    payload = payload_ref[:nb]
+    ref_codes = payload_ref[nb:]
+    dev = ops4.device
+    # lane -> op: mark each op's first lane (zero-length ops stack their
+    # marks; starts at or past `total` are dropped), then cumsum the marks
+    cum = torch.cumsum(op_len, 0, dtype=_I32)
+    first_lane = cum - op_len
+    lane = torch.arange(total, dtype=_I32, device=dev)
+    marks = torch.zeros(total, dtype=_I32, device=dev)
+    in_range = first_lane < total
+    marks.index_add_(0, first_lane[in_range].long(),
+                     torch.ones_like(first_lane[in_range]))
+    seg = torch.clamp(torch.cumsum(marks, 0, dtype=_I32) - 1,
+                      0, ops4.shape[1] - 1).long()
+    within = lane - first_lane[seg]
+    pos = op_ref[seg] + within
+    qidx = op_q[seg] + within
+    byte = payload[torch.clamp(qidx >> 1, 0, nb - 1).long()].to(_I32)
+    nib = (byte >> ((qidx & 1) << 2)) & 0xF
+    base = nib & 7
+    keep = (base < 4) & ((nib >> 3) > 0) & (lane < n_real)
+    key = torch.where(keep, pos * 4 + base, length * 4)
+    counts = _hist_counts(key, length)
+    is_site, is_het, alt_code, depth, alt_count = call_sites(
+        counts, ref_codes, min_depth, af_num, af_den, hom_num, hom_den,
+        min_alt)
+    n_sites = is_site.sum(dtype=_I32)
+    site_idx = _compact(is_site, max_sites)
+    at = site_idx.long()
+    return torch.cat([n_sites[None], site_idx, alt_code[at],
+                      is_het[at].to(_I32), depth[at], alt_count[at]])

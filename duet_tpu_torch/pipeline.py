@@ -1,0 +1,344 @@
+"""The batch pipeline, BAM -> phased_sv.vcf, with its device routes on torch.
+
+Port of ``duet_tpu.pipeline``'s batch mode: the same four stages (SNP
+calling -> SV calling -> SNP phasing -> SV phasing), the same on-disk
+artifacts and the same ``metrics.json`` schema.  Host helpers (ingest, the
+artifact writers, contig naming, the run state) are shared with the JAX
+package; the stages are copies whose device lines call the port.
+
+The device is explicit: ``PipelineConfig.device`` ('cuda' by default, or
+'cpu', which runs the same torch routes on the host).  ``device_stages``
+keeps its meaning — 'on' forces every device route onto that device at any
+size, 'off' keeps every stage on the host, and 'auto' uses the device only
+when it is a GPU and the input clears the JAX package's fast-link size
+gates (no link probe).  Outputs are byte-identical whichever route runs.
+
+Not ported yet (they raise NotImplementedError): --resume, --mesh, and
+multi-process runs (--coordinator / --num-processes); --stream and
+--phase-only are refused by the CLI.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from dataclasses import dataclass
+
+import torch
+
+from duet_tpu import pipeline as _ref
+from duet_tpu.io.fasta import FastaFile
+from duet_tpu.io.vcf import (
+    append_phased_sv_records,
+    parse_sv_vcf,
+    write_phased_sv_header,
+)
+from duet_tpu.models.snp_caller import write_pileup_vcf
+from duet_tpu.models.snp_phaser import read_hap_map, write_phased_snp_vcf
+from duet_tpu.models.sv_caller import call_bnds, write_sv_vcf
+from duet_tpu.pipeline import (
+    PipelineState,
+    _ingest,
+    _peak_rss_mb,
+    _sv_protect_intervals,
+    _work_contigs,
+    _write_haplotag_bam,
+    _write_haplotag_table,
+    check_envs,
+)
+from duet_tpu.utils import dispatch
+from duet_tpu.utils.chrom import strip_chr
+from duet_tpu.utils.logging import StageTimer, get_logger, setup_logging
+from duet_tpu_torch.device import resolve
+from duet_tpu_torch.models.snp_caller import call_snps_for_store
+from duet_tpu_torch.models.snp_phaser import phase_contig_core, score_contig
+from duet_tpu_torch.models.sv_caller import call_contig_with_evidence
+from duet_tpu_torch.models.sv_phaser import phase_callset
+from duet_tpu_torch.utils import devcost
+
+_CPU = torch.device("cpu")
+DECIDE_GATE_CALLS = 65536   # the JAX package's decision-stage auto gate
+
+
+@dataclass
+class PipelineConfig(_ref.PipelineConfig):
+    """duet_tpu's flag set plus the explicit torch device."""
+
+    device: str = "cuda"                # "cuda" | "cpu": where device routes run
+
+    def torch_device(self) -> torch.device:
+        return resolve(self.device)
+
+    def stages_on_device(self) -> bool:
+        """Whether the device routes run (each behind its size gate): never
+        under 'off' or --host-kernel, always under 'on', and under 'auto'
+        when the device is a GPU (the port's ``_accelerator_live``)."""
+        if not self.use_device_kernel or self.device_stages == "off":
+            return False
+        return self.device_stages == "on" or \
+            self.torch_device().type == "cuda"
+
+    def phasing_device_min_nnz(self) -> int:
+        """The fast-link gate of the JAX package (no probe); 0 under 'on'."""
+        return 0 if self.device_stages == "on" else self.PHASING_GATE_FAST_NNZ
+
+    def sv_cluster_min_k(self) -> int:
+        return 0 if self.device_stages == "on" else self.SV_GATE_FAST_K
+
+    def decide_on_device(self, n_calls: int) -> bool:
+        return self.stages_on_device() and (
+            self.device_stages == "on" or n_calls >= DECIDE_GATE_CALLS)
+
+    def nn_device(self) -> torch.device:
+        """Where the neural SNP caller runs: the device when the stages
+        run there, else the host."""
+        return self.torch_device() if self.stages_on_device() else _CPU
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to duet_tpu_torch yet (ROADMAP.md, Queue 1 "
+        f"item {item}); use duet-tpu for it")
+
+
+def _refuse_unported(cfg: PipelineConfig) -> None:
+    if cfg.resume:
+        raise _not_ported("--resume", "10")
+    if cfg.mesh is not None:
+        raise _not_ported("--mesh", "11")
+    if cfg.coordinator is not None or (cfg.num_processes or 1) > 1:
+        raise _not_ported("a multi-process run", "12")
+
+
+def stage_snp_calling(cfg: PipelineConfig, st: PipelineState) -> None:
+    """Mirrors ``duet_tpu.pipeline.stage_snp_calling`` (single process)."""
+    out_dir = os.path.join(cfg.output, "snp_calling")
+    os.makedirs(out_dir, exist_ok=True)
+    # key reference codes by the STORE's contig spelling
+    work_fa = _work_contigs(cfg, st.ref.contig_names)
+    ref_codes = {}
+    for store_name in st.store.contigs:
+        for fa_name in work_fa:
+            if strip_chr(store_name) == strip_chr(fa_name):
+                ref_codes[store_name] = st.ref.fetch_codes(fa_name)
+                break
+    st.snps, st.site_obs = call_snps_for_store(
+        st.store, ref_codes, cfg.snp_cfg(), threads=cfg.threads,
+        device=cfg.torch_device(), nn_device=cfg.nn_device())
+    write_pileup_vcf(os.path.join(out_dir, "pileup.vcf.gz"), st.snps,
+                     st.store.contig_lengths)
+    n = sum(len(s.pos) for s in st.snps.values())
+    get_logger().info("called %d SNP sites over %d contigs", n, len(st.snps))
+
+
+def stage_sv_calling(cfg: PipelineConfig, st: PipelineState) -> None:
+    """Mirrors ``duet_tpu.pipeline.stage_sv_calling`` (single process)."""
+    out_dir = os.path.join(cfg.output, "sv_calling")
+    os.makedirs(out_dir, exist_ok=True)
+    sv_cfg = cfg.sv_cfg()
+    dev = cfg.torch_device()
+
+    def one(item):
+        contig, cr = item
+        return contig, call_contig_with_evidence(cr, sv_cfg, device=dev)
+
+    work = list(st.store.contigs.items())
+    if cfg.threads > 1 and len(work) > 1:
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(cfg.threads) as ex:
+            results = list(ex.map(one, work))
+    else:
+        results = list(map(one, work))
+    calls = {c: r[0] for c, r in results}
+    evidence = {c: r[1] for c, r in results}
+    st.sv_calls = calls  # the phasing stage protects their support spans
+    bnds = call_bnds(evidence, sv_cfg)
+    write_sv_vcf(os.path.join(out_dir, "variants.vcf"), calls,
+                 st.store.contig_lengths, family=cfg.sv_caller, bnds=bnds)
+    n = sum(len(v) for v in calls.values())
+    get_logger().info("clustered %d SV candidates + %d breakend pairs",
+                      n, len(bnds))
+
+
+def stage_snp_phasing(cfg: PipelineConfig, st: PipelineState) -> None:
+    """Mirrors ``duet_tpu.pipeline.stage_snp_phasing``: the refine/correct
+    loop per contig (thread pool), then each contig's read scoring through
+    the dense device route (``phase_contig``'s choice)."""
+    out_dir = os.path.join(cfg.output, "snp_phasing")
+    os.makedirs(out_dir, exist_ok=True)
+    dev = cfg.torch_device()
+    use_device = cfg.stages_on_device()
+    min_nnz = cfg.phasing_device_min_nnz()
+    work = [(c, s) for c, s in st.snps.items() if c in st.store.contigs]
+
+    def core(item):
+        contig, snps = item
+        return contig, phase_contig_core(
+            st.store.contigs[contig], snps, cfg.snp_cfg(),
+            use_device=use_device, obs=st.site_obs.get(contig),
+            min_junction_evidence=cfg.min_junction_evidence,
+            device_min_nnz=min_nnz,
+            adaptive_junction_split=cfg.adaptive_junction_split,
+            protect_intervals=_sv_protect_intervals(cfg, st, contig),
+            device=dev)
+
+    if cfg.threads > 1 and len(work) > 1:
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(cfg.threads) as ex:
+            cores = dict(ex.map(core, work))
+    else:
+        cores = dict(map(core, work))
+
+    for contig, snps in work:
+        cr = st.store.contigs[contig]
+        result = score_contig(*cores[contig], use_device, min_nnz, dev)
+        st.phase_results[contig] = result
+        st.read_haps[contig] = read_hap_map(cr, result)
+        write_phased_snp_vcf(
+            os.path.join(out_dir, f"phased_{contig}.vcf.gz"), contig, snps,
+            result)
+        _write_haplotag_table(
+            os.path.join(out_dir, f"{contig}.haplotags.tsv"),
+            st.read_haps[contig])
+        if cfg.haplotag_bam:
+            _write_haplotag_bam(
+                os.path.join(out_dir, f"{contig}.bam"), cr,
+                st.read_haps[contig], st.store.contig_lengths)
+        n_reads = len(result.row_names) if result.row_names else cr.n
+        get_logger().info(
+            "[PHASING] %s: %d het sites, %d blocks, %d/%d reads tagged",
+            contig, len(result.site_pos), len(result.block_ps),
+            int((result.read_hap != 0).sum()), n_reads)
+
+
+def stage_sv_phasing(cfg: PipelineConfig, st: PipelineState) -> None:
+    """Mirrors ``duet_tpu.pipeline.stage_sv_phasing`` (single process),
+    with the decision pass on the device when ``decide_on_device``."""
+    variants = os.path.join(cfg.output, "sv_calling", "variants.vcf")
+    artifact = os.path.join(cfg.output, "phased_sv.vcf")
+    if not os.path.exists(variants):
+        raise FileNotFoundError(f"sv_calling artifact missing: {variants}")
+    # -a contig list comes from the SNP-calling artifact when present, as
+    # the reference's `tabix --list-chroms` on pileup.vcf.gz
+    chrom_list = None
+    if cfg.include_all_ctgs:
+        pileup = os.path.join(cfg.output, "snp_calling", "pileup.vcf.gz")
+        if os.path.exists(pileup):
+            from duet_tpu.io.vcf import list_chroms
+
+            chrom_list = list_chroms(pileup)
+    per_chrom = parse_sv_vcf(variants, cfg.include_all_ctgs,
+                             chrom_list=chrom_list)
+    have = {strip_chr(c) for c in st.read_haps}
+    missing = [c for c in per_chrom if strip_chr(c) not in have]
+    if missing:
+        from duet_tpu.io.haplotag_bam import read_hap_tables_from_dir
+
+        st.read_haps.update(read_hap_tables_from_dir(
+            os.path.join(cfg.output, "snp_phasing"), missing))
+    # align read-hap map keys to the parser's canonical names
+    read_haps = {}
+    for name in per_chrom:
+        for contig, m in st.read_haps.items():
+            if contig == name or strip_chr(contig) == strip_chr(name):
+                read_haps[name] = m
+                break
+    n_calls = sum(len(v) for v in per_chrom.values())
+    phased = phase_callset(
+        per_chrom, read_haps, cfg.sv_min_size, cfg.min_support_read,
+        use_device=cfg.decide_on_device(n_calls), phase_bnd=cfg.phase_bnd,
+        decision_model=cfg.decision_model, device=cfg.torch_device())
+    write_phased_sv_header(variants, artifact, cfg.include_all_ctgs)
+    append_phased_sv_records(phased, artifact)
+    get_logger().info("phased %d SV calls -> %s", len(phased), artifact)
+
+
+STAGES = (
+    ("SNP CALLING", stage_snp_calling),
+    ("SV CALLING", stage_sv_calling),
+    ("SNP PHASING", stage_snp_phasing),
+    ("SV PHASING", stage_sv_phasing),
+)
+
+
+def run_pipeline(cfg: PipelineConfig) -> str:
+    """Run all stages; returns the phased_sv.vcf path.  Mirrors
+    ``duet_tpu.pipeline.run_pipeline`` (single process, no mesh, no
+    compile cache); OUTPUT/metrics.json keeps its schema and adds the
+    device the run was configured for."""
+    _refuse_unported(cfg)
+    dev = cfg.torch_device()
+    check_envs(cfg)
+    os.makedirs(cfg.output, exist_ok=True)
+    setup_logging(cfg.output, file_name="run_duet.log")
+    log = get_logger()
+
+    t0 = time.time()
+    dispatch.reset()
+    devcost.reset()
+    st = PipelineState()
+    metrics: dict = {"stages": {}, "counts": {}}
+    with StageTimer("INGEST"):
+        t = time.time()
+        st.ref = FastaFile(cfg.reference)
+        fasta_s = time.time() - t
+        t_bam = time.time()
+        st.store, ingest_backend = _ingest(cfg)
+        bam_s = time.time() - t_bam
+        n_reads = sum(c.n for c in st.store.contigs.values())
+        metrics["stages"]["ingest"] = round(time.time() - t, 4)
+        metrics["counts"]["reads"] = n_reads
+        metrics["counts"]["contigs"] = len(st.store.contigs)
+        metrics["ingest"] = {
+            "backend": ingest_backend,
+            "fasta_index_s": round(fasta_s, 4),
+            "bam_decode_s": round(bam_s, 4),
+            "bam_decode_reads_per_s": round(n_reads / max(bam_s, 1e-9), 1),
+        }
+        if ingest_backend == "native":
+            from duet_tpu.io import native_ingest as _ni
+
+            if _ni.LAST_DECODE_STATS is not None:
+                metrics["ingest"]["native"] = _ni.LAST_DECODE_STATS
+        metrics["ingest_reads_per_s"] = round(
+            n_reads / max(time.time() - t, 1e-9), 1)
+        log.info("ingested %d reads over %d contigs", n_reads,
+                 len(st.store.contigs))
+    for name, fn in STAGES:
+        with StageTimer(name):
+            t = time.time()
+            fn(cfg, st)
+            metrics["stages"][name.lower().replace(" ", "_")] = \
+                round(time.time() - t, 4)
+    # labels reflect what actually ran (invocation counts), not the flags
+    snap = dispatch.snapshot()
+    metrics["backends"] = {s: dispatch.backend_label(s, snap)
+                           for s in dispatch.STAGES}
+    metrics["device_dispatch"] = snap
+    metrics["device_cost"] = devcost.snapshot()
+    metrics["device"] = {
+        "type": dev.type,
+        "name": torch.cuda.get_device_name(dev)
+        if dev.type == "cuda" and torch.cuda.is_available() else None,
+    }
+    if cfg.device_stages == "auto":
+        # the JAX package's fast-link gates; the port runs no link probe
+        metrics["device_size_gates"] = {
+            "sv_cluster_min_signatures": cfg.sv_cfg().device_min_k,
+            "phasing_min_nnz": cfg.phasing_device_min_nnz(),
+            "h2d_probe_mb_s": None,
+            "h2d_worst_put_s": None,
+        }
+    metrics["counts"]["snp_sites"] = sum(len(s.pos) for s in st.snps.values())
+    metrics["counts"]["tagged_reads"] = sum(
+        len(m) for m in st.read_haps.values())
+    metrics["total_s"] = round(time.time() - t0, 4)
+    metrics["peak_rss_mb"] = _peak_rss_mb()
+    with open(os.path.join(cfg.output, "metrics.json"), "w") as f:
+        json.dump(metrics, f, indent=2)
+    log.info("ALL STAGES COMPLETED IN %ss", metrics["total_s"])
+    log.info("OUTPUT: %s", os.path.join(cfg.output, "phased_sv.vcf"))
+    return os.path.join(cfg.output, "phased_sv.vcf")
