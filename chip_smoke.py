@@ -1,27 +1,43 @@
 """GPU smoke run of the duet_tpu_torch port: `python3 chip_smoke.py`.
 
 Needs one CUDA card (Hopper, sm_90a) and nvcc; builds the port's CUDA
-kernels from the sources in this checkout.  Phases, each printing one line:
+kernels from the sources in this checkout (one nvcc per source, started
+together).  Phases, each printing one line:
 
-  1. the card (name and power limit from nvidia-smi), torch/CUDA versions
-     and the kernel build time;
-  2. the haplotag scoring kernel against its plain torch version on the
-     card, at the pipeline's launch shape and on edge cases, with
-     torch.equal on hap/pc/best, and the median time of each;
-  3. the neural SNP caller's forward pass on the card against the CPU;
-  4. a simulated dataset (2 contigs x 5 Mb, 20x, fixed seed);
-  5. the batch pipeline through the port's CLI with --device-stages on,
-     asserting every stage ran on the device and the kernel launched;
-  6. the same CLI with --device-stages off, asserting byte-identical
-     artifacts.
+  [card]        the card (name and power limit from nvidia-smi), torch/CUDA
+                versions, the kernel build times and ptxas's counts;
+  [kernel]      the batched scoring kernel against its plain torch version
+                at the pipeline's launch shape and on edge cases;
+  [batched K=256]  the same kernel with rhs wider than 128 columns;
+  [sweep]       the power-iteration sweep kernel against its plain version
+                at the bench shape and on edge shapes;
+  [fused]       phase_and_tag_fused on the kernels against the plain
+                phase_and_tag (bench shape, sweeps 0/2/3, B=200), and the
+                shared-rhs score launch alone;
+  [score_pre]   haplotag_score (the precomputed-aw kernel) as a user calls
+                it, then against its plain version;
+  [nn]          the neural SNP caller's forward pass on the card vs the CPU;
+  [sim]         a simulated dataset (2 contigs x 5 Mb, 20x, fixed seed);
+  [pipeline on] the batch pipeline through the port's CLI with
+                --device-stages on (dense scorer), every stage on the device;
+  [pipeline off]  the same CLI with --device-stages off: byte-identical;
+  [pipeline sparse]  --device-stages on with the sparse COO scorer:
+                byte-identical to both;
+  [bench]       `python -m duet_tpu_torch.bench`'s full run in process.
 
-Any failure exits non-zero.  The second-to-last line is one JSON object
-describing the kernels; the last is {"ok": true, "device": {...}}.
+Every comparison of a kernel with its plain version is exact (torch.equal).
+Each path (the pipeline on, haplotag_score, the bench) runs with the launch
+counts set to 0 just before it and read just after, and fails if a kernel
+of that path never launched.  Any failure exits non-zero.  The
+second-to-last line is one JSON object describing the kernels; the last is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gzip
+import io
 import json
 import os
 import shutil
@@ -111,23 +127,77 @@ def edge_case_inputs(seed: int):
     return A, W, rhs, T, K - 2
 
 
+def bench_inputs(B: int = 64, seed: int = 0):
+    """bench.py's kernel batch at its full shape (R=32768, S=4096)."""
+    from duet_tpu_torch.bench import KERNEL_SHAPE, make_batch
+
+    R, S, _ = KERNEL_SHAPE["full"]
+    return make_batch(R, S, B, density=0.05, seed=seed)
+
+
+def sweep_edge_inputs(seed: int):
+    """R and S off every tile size, 70 all-zero rows, zero-phase sites."""
+    from duet_tpu_torch.bench import make_batch
+
+    A, W, phase0, onehot = make_batch(1000, 777, 5, density=0.2, seed=seed)
+    A[:70] = 0
+    W[:70] = 0
+    phase0[::9] = 0
+    return A, W, phase0, onehot
+
+
+def _cuda(A, W, phase0, onehot):
+    """Card tensors: alleles int8, weights float32 and bf16, phase, onehot."""
+    import torch
+
+    a, w, p, oh = (torch.from_numpy(x).cuda() for x in (A, W, phase0, onehot))
+    return a, w, w.to(torch.bfloat16), p, oh
+
+
+def _max_abs_err(got, want) -> int:
+    return max(int((g.long() - x.long()).abs().max()) if g.numel() else 0
+               for g, x in zip(got, want))
+
+
+def _require_equal(got, want, names, what: str) -> None:
+    import torch
+
+    torch.cuda.synchronize()
+    for name, g, x in zip(names, got, want):
+        if not torch.equal(g, x):
+            raise AssertionError(f"{what}: kernel != plain on {name}")
+
+
+def _require_launches(counts: dict, names, path: str) -> None:
+    missing = [n for n in names if counts[n] < 1]
+    if missing:
+        raise AssertionError(f"{path} never launched {missing}: {counts}")
+
+
 def phase_card(report: dict) -> None:
     import torch
 
+    from duet_tpu_torch.device import resolve
     from duet_tpu_torch.ops import cuda_build, haplotag_kernel
 
+    resolve("cuda")      # TF32 off for the plain versions' float32 products
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     report["card"] = smi.stdout.strip().splitlines()[0]
-    haplotag_kernel._library()
-    info = cuda_build.BUILD_INFO["haplotag_score"]
+    t = time.perf_counter()
+    haplotag_kernel.build()
+    wall = time.perf_counter() - t
+    builds = ", ".join(
+        f"{n} {cuda_build.BUILD_INFO[n]['seconds']} s (fresh build: "
+        f"{cuda_build.BUILD_INFO[n]['built']})"
+        for n in ("haplotag_score", "haplotag_sweep"))
+    ptxas = [f"{n}: {ln.strip()}" for n in ("haplotag_score", "haplotag_sweep")
+             for ln in cuda_build.BUILD_INFO[n]["log"].splitlines()
+             if "registers" in ln or "spill" in ln]
     print(f"[card] {report['card']} | torch {torch.__version__} cuda "
-          f"{torch.version.cuda} | haplotag_score built in {info['seconds']} s "
-          f"(fresh build: {info['built']})", flush=True)
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[card] ptxas: {line.strip()}", flush=True)
+          f"{torch.version.cuda} | kernels built in parallel in {wall:.1f} s: "
+          f"{builds} | ptxas: {' ; '.join(ptxas)}", flush=True)
 
 
 def phase_kernel(report: dict) -> None:
@@ -141,34 +211,147 @@ def phase_kernel(report: dict) -> None:
                 torch.from_numpy(W).to(torch.bfloat16).cuda(),
                 torch.from_numpy(rhs).to(torch.bfloat16).cuda())
 
-    worst = 0
     A, W, rhs = pipeline_shaped_inputs(seed=2024)
     a, w, r = on_card(A, W, rhs)
     got = haplotag_score_batch(a, w, r, 16, 126)
     want = phase_and_tag_batch(a, w, r, 16, 126)
-    torch.cuda.synchronize()
-    for name, g, x in zip(("hap", "pc", "best"), got, want):
-        if not torch.equal(g, x):
-            raise AssertionError(f"kernel != plain on {name} at the "
-                                 "pipeline shape")
-        worst = max(worst, int((g - x).abs().max()))
+    _require_equal(got, want, ("hap", "pc", "best"), "pipeline shape")
+    worst = _max_abs_err(got, want)
     tagged = float((got[0] != 0).float().mean())
     ms = _median_ms(lambda: haplotag_score_batch(a, w, r, 16, 126))
     plain_ms = _median_ms(lambda: phase_and_tag_batch(a, w, r, 16, 126))
     for seed in (1, 2, 3):
         A, W, rhs, T, nb = edge_case_inputs(seed)
         a2, w2, r2 = on_card(A, W, rhs)
-        got2 = haplotag_score_batch(a2, w2, r2, T, nb)
-        want2 = phase_and_tag_batch(a2, w2, r2, T, nb)
-        for name, g, x in zip(("hap", "pc", "best"), got2, want2):
-            if not torch.equal(g, x):
-                raise AssertionError(f"kernel != plain on {name}, edge case "
-                                     f"seed {seed}")
+        _require_equal(haplotag_score_batch(a2, w2, r2, T, nb),
+                       phase_and_tag_batch(a2, w2, r2, T, nb),
+                       ("hap", "pc", "best"), f"edge case seed {seed}")
     report["kernel"] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": worst}
     print(f"[kernel] haplotag_score == plain ({TOLERANCE}) at T=16 x 256 "
           f"rows, S=2304, K=128, n_blocks=126 ({tagged:.3f} rows tagged) and "
           f"on 3 edge-case sets; median {ms:.4f} ms vs plain "
           f"{plain_ms:.4f} ms on {report['card']}", flush=True)
+
+    # rhs wider than one 128-column slab: K = 256 at the pipeline shape,
+    # and K = 130 (two columns into the second slab) off the tile sizes
+    parts = []
+    for seed, T, rows, S, K in ((5, 16, 256, 2304, 256), (6, 3, 100, 1000, 130)):
+        A, W, rhs = pipeline_shaped_inputs(seed, T, rows, S, K, K - 2)
+        a, w, r = on_card(A, W, rhs)
+        got = haplotag_score_batch(a, w, r, T, K - 2)
+        _require_equal(got, phase_and_tag_batch(a, w, r, T, K - 2),
+                       ("hap", "pc", "best"), f"K={K}")
+        parts.append(f"T={T} x {rows} rows, S={S}, K={K} (best block up to "
+                     f"{int(got[2].max())})")
+    print(f"[batched K=256] haplotag_score == plain ({TOLERANCE}) at "
+          f"{' and '.join(parts)}", flush=True)
+
+
+def phase_sweep(report: dict) -> None:
+    import torch
+
+    from duet_tpu_torch.ops.haplotag import power_sweep_votes
+    from duet_tpu_torch.ops.haplotag_kernel import power_sweep
+
+    parts = []
+    cases = [("bench", bench_inputs())] + \
+        [(f"edge seed {s}", sweep_edge_inputs(s)) for s in (1, 2)]
+    for label, batch in cases:
+        a, _, w16, p, _ = _cuda(*batch)
+        p16 = p.to(torch.bfloat16)
+        got = power_sweep(a, w16, p16)
+        want = power_sweep_votes(a, w16, p16)
+        _require_equal([got], [want], ["votes"], f"sweep, {label}")
+        ms = _median_ms(lambda: power_sweep(a, w16, p16))
+        plain_ms = _median_ms(lambda: power_sweep_votes(a, w16, p16))
+        if label == "bench":
+            report["sweep"] = {"ms": ms, "plain_ms": plain_ms,
+                               "max_abs_err": float((got - want).abs().max())}
+        parts.append(f"{label} R={a.shape[0]} S={a.shape[1]}: {ms:.4f} ms vs "
+                     f"plain {plain_ms:.4f} ms")
+    print(f"[sweep] haplotag_sweep == power_sweep_votes (torch.equal on "
+          f"float32 votes; edge shapes hold 70 all-zero rows and zero-phase "
+          f"sites); median {'; '.join(parts)}", flush=True)
+
+
+def phase_fused(report: dict) -> None:
+    from duet_tpu_torch.ops import haplotag_kernel
+    from duet_tpu_torch.ops.haplotag import phase_and_tag, phase_and_tag_batch
+
+    keys = ("hap", "pc", "best_block", "phase")
+    parts = []
+    for B, sweeps in ((64, 2), (64, 0), (64, 3), (200, 2)):
+        a, w, w16, p, oh = _cuda(*bench_inputs(B))
+        got = haplotag_kernel.phase_and_tag_fused(a, w16, p, oh, sweeps)
+        want = phase_and_tag(a, w, p, oh, sweeps)
+        _require_equal([got[k] for k in keys], [want[k] for k in keys], keys,
+                       f"fused B={B} sweeps={sweeps}")
+        ms = _median_ms(
+            lambda: haplotag_kernel.phase_and_tag_fused(a, w16, p, oh, sweeps),
+            reps=10)
+        plain_ms = _median_ms(lambda: phase_and_tag(a, w, p, oh, sweeps),
+                              reps=10)
+        parts.append(f"B={B} sweeps={sweeps}: {ms:.4f} ms vs plain "
+                     f"{plain_ms:.4f} ms (best block up to "
+                     f"{int(got['best_block'].max())})")
+        if (B, sweeps) == (64, 2):
+            report["fused"] = {"ms": ms, "plain_ms": plain_ms}
+            # the shared-rhs score launch alone, on the refined phase
+            rhs = haplotag_kernel._rhs(got["phase"], oh)
+            shared = haplotag_kernel._score_batch(
+                "haplotag_score_shared", a, w16, rhs, 1, B)
+            plain = phase_and_tag_batch(a, w16, rhs, 1, B)
+            _require_equal(shared, plain, ("hap", "pc", "best"),
+                           "shared-rhs score launch")
+            report["shared"] = {
+                "max_abs_err": _max_abs_err(shared, plain),
+                "ms": _median_ms(lambda: haplotag_kernel._score_batch(
+                    "haplotag_score_shared", a, w16, rhs, 1, B)),
+                "plain_ms": _median_ms(
+                    lambda: phase_and_tag_batch(a, w16, rhs, 1, B))}
+    print(f"[fused] phase_and_tag_fused == phase_and_tag ({TOLERANCE} and "
+          f"int8 phase) at R={a.shape[0]}, S={a.shape[1]}; median "
+          f"{'; '.join(parts)}; the "
+          f"shared-rhs score launch alone {report['shared']['ms']:.4f} ms vs "
+          f"plain {report['shared']['plain_ms']:.4f} ms", flush=True)
+
+
+def phase_score_pre(report: dict) -> None:
+    import torch
+
+    from duet_tpu_torch.ops import haplotag_kernel
+    from duet_tpu_torch.ops.haplotag import haplotag_score_plain
+
+    parts = []
+    for B in (64, 200):
+        a, w, _, p, oh = _cuda(*bench_inputs(B))
+        if B == 64:     # the path: haplotag_score as a user calls it
+            torch.cuda.synchronize()
+            haplotag_kernel.reset_launches()
+            got = haplotag_kernel.haplotag_score(a, w, p, oh)
+            torch.cuda.synchronize()
+            counts = dict(haplotag_kernel.LAUNCHES)
+            _require_launches(counts, ["haplotag_score_pre"],
+                              "haplotag_score")
+            report["launches_score_pre"] = counts["haplotag_score_pre"]
+        else:
+            got = haplotag_kernel.haplotag_score(a, w, p, oh)
+        aw = a.to(torch.bfloat16) * w.to(torch.bfloat16)
+        abs_aw = aw.abs()
+        rhs = haplotag_kernel._rhs(p, oh)
+        want = haplotag_score_plain(aw, abs_aw, rhs, B)
+        _require_equal(got, want, ("hap", "pc", "best"), f"score_pre B={B}")
+        ms = _median_ms(
+            lambda: haplotag_kernel.haplotag_score_pre(aw, abs_aw, rhs, B))
+        plain_ms = _median_ms(lambda: haplotag_score_plain(aw, abs_aw, rhs, B))
+        if B == 64:
+            report["score_pre"] = {"ms": ms, "plain_ms": plain_ms,
+                                   "max_abs_err": _max_abs_err(got, want)}
+        parts.append(f"B={B}: {ms:.4f} ms vs plain {plain_ms:.4f} ms")
+    print(f"[score_pre] haplotag_score == haplotag_score_plain ({TOLERANCE}) "
+          f"at R={a.shape[0]}, S={a.shape[1]}; the kernel on the given aw, median "
+          f"{'; '.join(parts)}; launches in the path "
+          f"{report['launches_score_pre']}", flush=True)
 
 
 def phase_nn(report: dict) -> None:
@@ -220,15 +403,15 @@ def phase_pipeline_on(report: dict, data: str, work: str) -> None:
     from duet_tpu_torch.ops import haplotag_kernel
 
     torch.cuda.synchronize()
-    haplotag_kernel.LAUNCHES = 0
+    haplotag_kernel.reset_launches()
     metrics = _run_cli(data, os.path.join(work, "on"), "on")
-    report["launches"] = haplotag_kernel.LAUNCHES
+    counts = dict(haplotag_kernel.LAUNCHES)
+    report["launches"] = counts["haplotag_score"]
     backends = metrics["backends"]
     wrong = {s: b for s, b in backends.items() if b != "device"}
     if wrong:
         raise AssertionError(f"stages not on the device: {wrong}")
-    if report["launches"] < 1:
-        raise AssertionError("the haplotag kernel never launched")
+    _require_launches(counts, ["haplotag_score"], "the pipeline (dense)")
     report["pipeline_on"] = metrics
     print(f"[pipeline on] backends all device, haplotag_score launches "
           f"{report['launches']}, ingest {metrics['ingest']['backend']}, "
@@ -247,32 +430,112 @@ def _read(path: str) -> bytes:
         return f.read()
 
 
-def phase_pipeline_off(report: dict, data: str, work: str) -> None:
-    from duet_tpu_torch.ops import haplotag_kernel
-
-    before = haplotag_kernel.LAUNCHES
-    metrics = _run_cli(data, os.path.join(work, "off"), "off")
-    if haplotag_kernel.LAUNCHES != before:
-        raise AssertionError("--device-stages off launched the kernel")
-    on, off = os.path.join(work, "on"), os.path.join(work, "off")
+def _compare_artifacts(a: str, b: str) -> int:
+    """Assert the two runs' artifacts are byte-identical; returns how many."""
+    if sorted(os.listdir(os.path.join(a, "snp_phasing"))) != \
+            sorted(os.listdir(os.path.join(b, "snp_phasing"))):
+        raise AssertionError(f"snp_phasing/ holds different files in {a} "
+                             f"and {b}")
     names = ["snp_calling/pileup.vcf.gz", "sv_calling/variants.vcf",
              "phased_sv.vcf"]
     names += [f"snp_phasing/{n}"
-              for n in sorted(os.listdir(os.path.join(on, "snp_phasing")))]
-    if sorted(os.listdir(os.path.join(off, "snp_phasing"))) != \
-            sorted(os.listdir(os.path.join(on, "snp_phasing"))):
-        raise AssertionError("snp_phasing/ holds different files on and off")
+              for n in sorted(os.listdir(os.path.join(a, "snp_phasing")))]
     for name in names:
-        if _read(os.path.join(on, name)) != _read(os.path.join(off, name)):
-            raise AssertionError(f"{name} differs between on and off")
+        if _read(os.path.join(a, name)) != _read(os.path.join(b, name)):
+            raise AssertionError(f"{name} differs between {a} and {b}")
+    return len(names)
+
+
+def phase_pipeline_off(report: dict, data: str, work: str) -> None:
+    from duet_tpu_torch.ops import haplotag_kernel
+
+    before = dict(haplotag_kernel.LAUNCHES)
+    metrics = _run_cli(data, os.path.join(work, "off"), "off")
+    if haplotag_kernel.LAUNCHES != before:
+        raise AssertionError("--device-stages off launched a kernel")
+    on = os.path.join(work, "on")
+    n = _compare_artifacts(on, os.path.join(work, "off"))
     with open(os.path.join(on, "phased_sv.vcf")) as f:
         n_phased = sum(1 for ln in f if ln.strip() and not ln.startswith("#"))
     if n_phased == 0:
         raise AssertionError("the run phased no SV call")
-    print(f"[pipeline off] {len(names)} artifacts byte-identical to the "
+    print(f"[pipeline off] {n} artifacts byte-identical to the "
           f"device run ({n_phased} phased SV calls); host total "
           f"{metrics['total_s']} s, stages {json.dumps(metrics['stages'])}",
           flush=True)
+
+
+def phase_pipeline_sparse(report: dict, data: str, work: str) -> None:
+    """--device-stages on with duet_tpu's default scorer, the sparse COO
+    scatter: the same artifacts, and its haplotag cost beside the dense
+    kernel's."""
+    from duet_tpu_torch.models import snp_phaser
+    from duet_tpu_torch.ops import haplotag_kernel
+
+    before = dict(haplotag_kernel.LAUNCHES)
+    snp_phaser.HAPLOTAG_DEVICE_MODE = "sparse"
+    try:
+        metrics = _run_cli(data, os.path.join(work, "sparse"), "on")
+    finally:
+        snp_phaser.HAPLOTAG_DEVICE_MODE = "dense"
+    if haplotag_kernel.LAUNCHES != before:
+        raise AssertionError("the sparse scorer launched a dense kernel")
+    if metrics["backends"]["haplotag"] != "device":
+        raise AssertionError(f"sparse haplotag ran on "
+                             f"{metrics['backends']['haplotag']}")
+    sparse = os.path.join(work, "sparse")
+    n = _compare_artifacts(sparse, os.path.join(work, "on"))
+    _compare_artifacts(sparse, os.path.join(work, "off"))
+    dense = report["pipeline_on"]
+    report["pipeline_sparse"] = metrics
+    print(f"[pipeline sparse] {n} artifacts byte-identical to the dense on "
+          f"run and to off; haplotag device_cost sparse "
+          f"{json.dumps(metrics['device_cost']['haplotag'])} vs dense "
+          f"{json.dumps(dense['device_cost']['haplotag'])}; snp_phasing "
+          f"stage {metrics['stages']['snp_phasing']} s vs dense "
+          f"{dense['stages']['snp_phasing']} s; total {metrics['total_s']} s "
+          f"vs dense {dense['total_s']} s; stages "
+          f"{json.dumps(metrics['stages'])}", flush=True)
+
+
+def phase_bench(report: dict) -> None:
+    """`python -m duet_tpu_torch.bench` (kernel + e2e auto + e2e on), in
+    process; it must go through the fused kernels and print one JSON
+    line, last."""
+    import torch
+
+    from duet_tpu_torch import bench
+    from duet_tpu_torch.ops import haplotag_kernel
+
+    torch.cuda.synchronize()
+    haplotag_kernel.reset_launches()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = bench.main([])
+    counts = dict(haplotag_kernel.LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"the bench exited {rc}")
+    _require_launches(counts, ["haplotag_sweep", "haplotag_score_shared",
+                               "haplotag_score"], "the bench")
+    line = out.getvalue().strip().splitlines()[-1]
+    result = json.loads(line)
+    if result["e2e_forced_device"]["backends"]["haplotag"] != "device":
+        raise AssertionError("the bench's forced-device run scored on host")
+    report["bench_launches"] = counts
+    print(f"[bench] launches {json.dumps(counts)} | {line}", flush=True)
+
+
+KERNELS = [
+    # name, source, replaces, the report entry with its times
+    ("haplotag_score", "duet_tpu_torch/csrc/haplotag_score.cu",
+     "duet_tpu/ops/pallas_haplotag.py:92", "kernel"),
+    ("haplotag_score_shared", "duet_tpu_torch/csrc/haplotag_score.cu",
+     "duet_tpu/ops/pallas_haplotag.py:183", "shared"),
+    ("haplotag_sweep", "duet_tpu_torch/csrc/haplotag_sweep.cu",
+     "duet_tpu/ops/pallas_haplotag.py:71", "sweep"),
+    ("haplotag_score_pre", "duet_tpu_torch/csrc/haplotag_score.cu",
+     "duet_tpu/ops/pallas_haplotag.py:37", "score_pre"),
+]
 
 
 def main() -> int:
@@ -286,25 +549,37 @@ def main() -> int:
     try:
         phase_card(report)
         phase_kernel(report)
+        phase_sweep(report)
+        phase_fused(report)
+        phase_score_pre(report)
         phase_nn(report)
         data = phase_simulate(report, work)
         phase_pipeline_on(report, data, work)
         phase_pipeline_off(report, data, work)
+        phase_pipeline_sparse(report, data, work)
+        phase_bench(report)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
+    # launches come from each kernel's path: the pipeline on (the batched
+    # scorer), the bench (sweep and shared-rhs score) and haplotag_score
+    launches = {"haplotag_score": report["launches"],
+                "haplotag_score_pre": report["launches_score_pre"],
+                "haplotag_sweep": report["bench_launches"]["haplotag_sweep"],
+                "haplotag_score_shared":
+                    report["bench_launches"]["haplotag_score_shared"]}
     print(report["card"])
     print(json.dumps({"kernels": [{
-        "name": "haplotag_score",
+        "name": name,
         "route": "cuda",
-        "source": "duet_tpu_torch/csrc/haplotag_score.cu",
-        "replaces": "duet_tpu/ops/pallas_haplotag.py:92",
-        "launches": report["launches"],
-        "max_abs_err": report["kernel"]["max_abs_err"],
-        "ms": report["kernel"]["ms"],
-        "plain_ms": report["kernel"]["plain_ms"],
-    }]}))
+        "source": source,
+        "replaces": replaces,
+        "launches": launches[name],
+        "max_abs_err": report[key]["max_abs_err"],
+        "ms": report[key]["ms"],
+        "plain_ms": report[key]["plain_ms"],
+    } for name, source, replaces, key in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

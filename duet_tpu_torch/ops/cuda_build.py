@@ -6,7 +6,9 @@ package, at first use, keyed by a hash of the sources and flags — so a fresh
 checkout builds once and an edited source rebuilds.  The kernels expose a
 plain C interface (no PyTorch headers), which keeps a build to seconds.
 
-There is no fallback: a missing nvcc or a failed build raises.
+Libraries build independently: two threads loading two libraries run
+their nvcc processes at the same time.  There is no fallback: a missing
+nvcc or a failed build raises.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "duet_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_lock = threading.Lock()                     # guards _name_locks
+_name_locks: dict[str, threading.Lock] = {}  # one build at a time per name
 _libs: dict[str, ctypes.CDLL] = {}
 # name -> {"path", "seconds", "built", "log"}: what the last load did
 BUILD_INFO: dict[str, dict] = {}
@@ -47,6 +50,8 @@ def load(name: str, sources: list[str]) -> ctypes.CDLL:
     """The ctypes library `name` built from `sources` (file names under
     csrc/), building it first if this source hash has no library yet."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib

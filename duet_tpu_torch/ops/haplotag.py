@@ -1,5 +1,8 @@
 """Dense K1 haplotag scoring in plain torch: the twins of
-``duet_tpu.ops.haplotag.phase_and_tag`` and ``phase_and_tag_batch``.
+``duet_tpu.ops.haplotag.phase_and_tag`` and ``phase_and_tag_batch``, and
+the plain versions of the Pallas kernels of
+``duet_tpu.ops.pallas_haplotag`` (``power_sweep_votes`` for
+``_sweep_kernel``, ``haplotag_score_plain`` for ``_kernel``).
 
 Reads and phased het sites of a window form a dense (R x S) signed allele
 matrix (+1 alt, -1 ref, 0 not covered), quality-weighted.  Scoring is three
@@ -13,8 +16,8 @@ As in the JAX package, aw is formed in bfloat16 (allele x weight, both
 exact for quality weights <= 40) and every product is summed in float32:
 torch's bf16 @ bf16 returns bf16, which would round sums above 256, so the
 operands are widened to float32 first.  All sums are integers below 2^24,
-hence exact in any summation order.  The hand kernel
-(``ops.haplotag_kernel``) is pinned bit-equal to ``phase_and_tag_batch``.
+hence exact in any summation order.  The hand kernels
+(``ops.haplotag_kernel``) are pinned bit-equal to these functions.
 """
 
 from __future__ import annotations
@@ -38,6 +41,34 @@ def _epilogue(signed, total, blockw):
     pc = torch.where(tagged, pc.to(torch.int32), -1).to(torch.int32)
     best = torch.argmax(blockw, dim=-1).to(torch.int32)  # first max wins
     return hap, pc, best
+
+
+def power_sweep_votes(alleles: torch.Tensor, weights16: torch.Tensor,
+                      phase: torch.Tensor) -> torch.Tensor:
+    """One power-iteration sweep over a dense window: the plain version of
+    the Pallas ``_sweep_kernel``.
+
+    alleles (R, S) int8; weights16 (R, S), taken as bf16; phase (S,)
+    +1/-1/0.  Returns the (S,) float32 site votes ``aw.T @ sign(aw @
+    phase)``.  The float32 sums are exact while 40 * R < 2^24 (and
+    40 * S < 2^24), i.e. below 419,430 rows."""
+    aw = _aw(alleles, weights16)
+    h = torch.sign(aw @ phase.float())
+    return aw.T @ h
+
+
+def haplotag_score_plain(aw: torch.Tensor, abs_aw: torch.Tensor,
+                         rhs: torch.Tensor, n_blocks: int):
+    """Read scoring on a precomputed aw and |aw|: the plain version of the
+    Pallas ``_kernel``.
+
+    aw, abs_aw (R, S) bf16; rhs (S, K) [phase | informative | block
+    one-hot], taken as bf16.  Returns (hap, pc, best_block), each (R,)
+    int32."""
+    rhs32 = rhs.to(torch.bfloat16).float()
+    signed = aw.float() @ rhs32[:, 0]
+    rest = abs_aw.float() @ rhs32[:, 1:]
+    return _epilogue(signed, rest[:, 0], rest[:, 1:1 + n_blocks])
 
 
 def phase_and_tag_batch(alleles: torch.Tensor, weights: torch.Tensor,

@@ -52,7 +52,10 @@ from duet_tpu.utils.chrom import strip_chr
 from duet_tpu.utils.logging import StageTimer, get_logger, setup_logging
 from duet_tpu_torch.device import resolve
 from duet_tpu_torch.models.snp_caller import call_snps_for_store
-from duet_tpu_torch.models.snp_phaser import phase_contig_core, score_contig
+from duet_tpu_torch.models.snp_phaser import (
+    phase_contig_core,
+    score_contigs_batched,
+)
 from duet_tpu_torch.models.sv_caller import call_contig_with_evidence
 from duet_tpu_torch.models.sv_phaser import phase_callset
 from duet_tpu_torch.utils import devcost
@@ -164,8 +167,9 @@ def stage_sv_calling(cfg: PipelineConfig, st: PipelineState) -> None:
 
 def stage_snp_phasing(cfg: PipelineConfig, st: PipelineState) -> None:
     """Mirrors ``duet_tpu.pipeline.stage_snp_phasing``: the refine/correct
-    loop per contig (thread pool), then each contig's read scoring through
-    the dense device route (``phase_contig``'s choice)."""
+    loop per contig (thread pool, each contig behind its own nnz gate),
+    then the read scoring of all contigs in one batch, on the device when
+    their combined nnz clears the gate (``score_contigs_batched``)."""
     out_dir = os.path.join(cfg.output, "snp_phasing")
     os.makedirs(out_dir, exist_ok=True)
     dev = cfg.torch_device()
@@ -192,9 +196,10 @@ def stage_snp_phasing(cfg: PipelineConfig, st: PipelineState) -> None:
     else:
         cores = dict(map(core, work))
 
+    scored = score_contigs_batched(cores, use_device, min_nnz, dev)
     for contig, snps in work:
         cr = st.store.contigs[contig]
-        result = score_contig(*cores[contig], use_device, min_nnz, dev)
+        result = scored[contig]
         st.phase_results[contig] = result
         st.read_haps[contig] = read_hap_map(cr, result)
         write_phased_snp_vcf(

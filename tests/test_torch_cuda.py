@@ -15,8 +15,14 @@ import pytest
 import torch
 
 import chip_smoke
+from duet_tpu_torch.bench import make_batch
 from duet_tpu_torch.ops import haplotag_kernel
-from duet_tpu_torch.ops.haplotag import phase_and_tag_batch
+from duet_tpu_torch.ops.haplotag import (
+    haplotag_score_plain,
+    phase_and_tag,
+    phase_and_tag_batch,
+    power_sweep_votes,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -41,14 +47,101 @@ def test_kernel_matches_plain(cuda_device, case):
     a = torch.from_numpy(A).to(cuda_device)
     w = torch.from_numpy(W).to(torch.bfloat16).to(cuda_device)
     r = torch.from_numpy(rhs).to(torch.bfloat16).to(cuda_device)
-    before = haplotag_kernel.LAUNCHES
+    before = haplotag_kernel.LAUNCHES["haplotag_score"]
     got = haplotag_kernel.haplotag_score_batch(a, w, r, T, B)
     want = phase_and_tag_batch(a, w, r, T, B)
     torch.cuda.synchronize()
-    assert haplotag_kernel.LAUNCHES == before + 1
+    assert haplotag_kernel.LAUNCHES["haplotag_score"] == before + 1
     for name, x, y in zip(("hap", "pc", "best"), got, want):
         assert x.device == cuda_device and x.dtype == torch.int32
         assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("K", [130, 256])
+def test_kernel_wide_rhs_matches_plain(cuda_device, K):
+    """rhs wider than one 128-column slab of the kernel."""
+    A, W, rhs = chip_smoke.pipeline_shaped_inputs(K, 3, 200, 700, K, K - 2)
+    a = torch.from_numpy(A).to(cuda_device)
+    w = torch.from_numpy(W).to(torch.bfloat16).to(cuda_device)
+    r = torch.from_numpy(rhs).to(torch.bfloat16).to(cuda_device)
+    got = haplotag_kernel.haplotag_score_batch(a, w, r, 3, K - 2)
+    want = phase_and_tag_batch(a, w, r, 3, K - 2)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("hap", "pc", "best"), got, want):
+        assert torch.equal(x, y), name
+
+
+def _small_batch(seed, B):
+    """Shapes off every tile size on the card: chip_smoke.py's sweep edge
+    case (B = 5: all-zero rows, zero-phase sites), else a denser batch."""
+    batch = chip_smoke.sweep_edge_inputs(seed) if B == 5 else \
+        make_batch(1000, 777, B, density=0.1, seed=seed)
+    return chip_smoke._cuda(*batch)
+
+
+@pytest.mark.parametrize("seed,B", [(1, 5), (2, 5), (3, 40)])
+def test_sweep_kernel_matches_plain(cuda_device, seed, B):
+    a, _, w16, p, _ = _small_batch(seed, B)
+    p16 = p.to(torch.bfloat16)
+    before = haplotag_kernel.LAUNCHES["haplotag_sweep"]
+    got = haplotag_kernel.power_sweep(a, w16, p16)
+    want = power_sweep_votes(a, w16, p16)
+    torch.cuda.synchronize()
+    assert haplotag_kernel.LAUNCHES["haplotag_sweep"] == before + 1
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("B,sweeps", [(5, 2), (40, 0), (40, 3), (200, 2)])
+def test_fused_matches_plain(cuda_device, B, sweeps):
+    a, w, w16, p, oh = _small_batch(7, B)
+    before = dict(haplotag_kernel.LAUNCHES)
+    got = haplotag_kernel.phase_and_tag_fused(a, w16, p, oh, sweeps)
+    want = phase_and_tag(a, w, p, oh, sweeps)
+    torch.cuda.synchronize()
+    assert haplotag_kernel.LAUNCHES["haplotag_sweep"] == \
+        before["haplotag_sweep"] + sweeps
+    assert haplotag_kernel.LAUNCHES["haplotag_score_shared"] == \
+        before["haplotag_score_shared"] + 1
+    for key in ("hap", "pc", "best_block", "phase"):
+        assert torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.parametrize("B", [5, 200])
+def test_score_pre_matches_plain(cuda_device, B):
+    a, w, _, p, oh = _small_batch(8, B)
+    before = haplotag_kernel.LAUNCHES["haplotag_score_pre"]
+    got = haplotag_kernel.haplotag_score(a, w, p, oh)
+    aw = a.to(torch.bfloat16) * w.to(torch.bfloat16)
+    want = haplotag_score_plain(aw, aw.abs(), haplotag_kernel._rhs(p, oh), B)
+    torch.cuda.synchronize()
+    assert haplotag_kernel.LAUNCHES["haplotag_score_pre"] == before + 1
+    for name, x, y in zip(("hap", "pc", "best"), got, want):
+        assert torch.equal(x, y), name
+
+
+def test_sparse_scorer_on_card_matches_cpu(cuda_device):
+    """The sparse COO scorer's torch ops (int32 index_add_, scatter
+    min/max, first-max argmax) on the card equal the same ops on the CPU,
+    on reads spanning up to ~40 blocks (overflow) and entry-less reads."""
+    from duet_tpu.models.snp_phaser import AlleleMatrix
+    from duet_tpu_torch.ops.sparse_power import haplotag_score_sparse
+
+    rng = np.random.default_rng(4)
+    n_reads, n_sites, nnz = 3000, 5000, 60000
+    key = np.unique(rng.integers(5, n_reads, nnz) * n_sites +
+                    rng.integers(0, n_sites, nnz))
+    am = AlleleMatrix(n_reads, n_sites, np.arange(n_sites) * 100,
+                      (key // n_sites).astype(np.int32),
+                      (key % n_sites).astype(np.int32),
+                      rng.choice(np.array([-1, 1], np.int8), len(key)),
+                      rng.integers(1, 41, len(key)).astype(np.float32))
+    phase = rng.choice(np.array([-1, 0, 1], np.int8), n_sites)
+    block_id = np.sort(rng.integers(0, 200, n_sites))
+    got = haplotag_score_sparse(am, phase, block_id, cuda_device)
+    want = haplotag_score_sparse(am, phase, block_id, torch.device("cpu"))
+    assert got[3].any() and (got[0][:5] == 0).all()
+    for name, g, w in zip(("hap", "pc", "best", "overflow"), got, want):
+        np.testing.assert_array_equal(g, w, err_msg=name)
 
 
 def test_device_routes_on_card_match_host(cuda_device, tmp_path):

@@ -85,11 +85,30 @@ def test_phase_and_tag_matches_jax(R, S, B, sweeps):
                                       err_msg=key)
 
 
+def test_batch_wide_rhs_matches_pallas():
+    """K = 256 (two 128-column slabs in the kernel): the wrapper equals the
+    Pallas kernel and its jnp twin, with best blocks past column 128."""
+    A, W, rhs, T, B = batch_inputs(21, T=2, S=256, B=254)
+    W16 = W.astype(ml_dtypes.bfloat16)
+    rhs16 = rhs.astype(ml_dtypes.bfloat16)
+    hap_j, pc_j, best_j = jax_haplotag.phase_and_tag_batch(
+        A, W16, rhs16, n_tasks=T, n_blocks=B)
+    packed = np.asarray(haplotag_score_batch_pallas(
+        A, W16, rhs16, n_tasks=T, n_blocks=B, interpret=INTERPRET))
+    got = haplotag_kernel.haplotag_score_batch(
+        torch.from_numpy(A), torch.from_numpy(W).to(torch.bfloat16),
+        torch.from_numpy(rhs).to(torch.bfloat16), T, B)
+    for k, want in enumerate((hap_j, pc_j, best_j)):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want))
+        np.testing.assert_array_equal(got[k].numpy(), packed[:, k])
+    assert got[2].max() > 126
+
+
 def test_wrapper_takes_plain_version_on_cpu():
     A, W, rhs, T, B = batch_inputs(3)
     args = (torch.from_numpy(A), torch.from_numpy(W).to(torch.bfloat16),
             torch.from_numpy(rhs).to(torch.bfloat16))
-    before = haplotag_kernel.LAUNCHES
+    before = dict(haplotag_kernel.LAUNCHES)
     got = haplotag_kernel.haplotag_score_batch(*args, T, B)
     want = phase_and_tag_batch(*args, T, B)
     assert haplotag_kernel.LAUNCHES == before   # no kernel on the CPU
@@ -97,8 +116,8 @@ def test_wrapper_takes_plain_version_on_cpu():
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("case", ["f32_weights", "rows", "rhs_rows", "wide_k",
-                                  "no_blocks", "strided"])
+@pytest.mark.parametrize("case", ["f32_weights", "rows", "rhs_rows",
+                                  "narrow_k", "no_blocks", "strided"])
 def test_wrapper_rejects_bad_inputs(case):
     A, W, rhs, T, B = batch_inputs(3, T=2, S=128, B=10)
     a = torch.from_numpy(A)
@@ -111,8 +130,8 @@ def test_wrapper_rejects_bad_inputs(case):
         n_tasks = 3
     elif case == "rhs_rows":
         r = r[:-1]
-    elif case == "wide_k":
-        r = torch.zeros((T * 128, 130), dtype=torch.bfloat16)
+    elif case == "narrow_k":          # no column left for a block
+        r = torch.zeros((T * 128, 2), dtype=torch.bfloat16)
     elif case == "no_blocks":
         n_blocks = 0
     elif case == "strided":

@@ -69,7 +69,8 @@ def test_artifacts_match_jax_pipeline(sim_dataset, tmp_path, mode, backend):
 def test_cli_run_imports_no_jax(tmp_path):
     """`python -m duet_tpu_torch ... --device cpu --device-stages on` in a
     fresh interpreter whose import system refuses jax, jaxlib, ml_dtypes
-    and optax: the whole device-stage pipeline runs."""
+    and optax: the whole device-stage pipeline runs, and the bench module
+    imports."""
     from duet_tpu.sim import SimConfig, simulate_dataset
 
     data = str(tmp_path / "data")
@@ -87,6 +88,7 @@ def test_cli_run_imports_no_jax(tmp_path):
                 return None
 
         sys.meta_path.insert(0, Refuse())
+        import duet_tpu_torch.bench
         sys.argv = ["duet_tpu_torch", {data!r} + "/reads.bam",
                     {data!r} + "/ref.fa", {out!r}, "--device", "cpu",
                     "--device-stages", "on", "-t", "2"]

@@ -65,7 +65,7 @@ def test_batched_dispatch_call_count():
     am = matrix_from_dense(D)
     phase, block_id, block_ps = sp._initial_phase(am)
     dispatch.reset()
-    before = haplotag_kernel.LAUNCHES
+    before = dict(haplotag_kernel.LAUNCHES)
     tsp._haplotag_device(am, phase, block_id, block_ps, window=16, halo=4,
                          batch=16, device=CPU)
     # 900 reads over ~8 windows -> >= 8 chunks in one launch; reads wider
@@ -133,7 +133,8 @@ def test_phase_contig_matches_jax(sim_dataset):
     dispatch.reset()
     core = tsp.phase_contig_core(cr, snps["chr21"], use_device=True,
                                  device=CPU)
-    got = tsp.score_contig(*core, use_device=True, device=CPU)
+    got = tsp.score_contigs_batched({"chr21": core}, use_device=True,
+                                    device_min_nnz=0, device=CPU)["chr21"]
     snap = dispatch.snapshot()
     assert snap["haplotag"] == {"device": 1}
     assert set(snap["phase_refine"]) == {"device"}
