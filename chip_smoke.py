@@ -5,10 +5,15 @@ kernels from the sources in this checkout (one nvcc per source, started
 together).  Phases, each printing one line:
 
   [card]        the card (name and power limit from nvidia-smi), torch/CUDA
-                versions, the kernel build times and ptxas's counts;
+                versions, the kernel build times and ptxas's registers,
+                spills and shared memory for every kernel instantiation;
   [kernel]      the batched scoring kernel against its plain torch version
                 at the pipeline's launch shape and on edge cases;
   [batched K=256]  the same kernel with rhs wider than 128 columns;
+  [score edges] both score entries (batched and precomputed aw) on every
+                K in 3, 9, 66, 72, 130, 256 by S in 777, 1000, 1040, 2304
+                and rows in 1, 100, 1000, with all-zero rows, tied blocks
+                and negative signed sums;
   [sweep]       the power-iteration sweep kernel against its plain version
                 at the bench shape and on edge shapes;
   [fused]       phase_and_tag_fused on the kernels against the plain
@@ -26,6 +31,11 @@ together).  Phases, each printing one line:
   [bench]       `python -m duet_tpu_torch.bench`'s full run in process.
 
 Every comparison of a kernel with its plain version is exact (torch.equal).
+Times are medians of CUDA-event timed launches taken in turns (plain,
+kernel, kernel, plain); beside each kernel stand its bound (the larger of
+its bytes over the card's memory rate and its operations over the peak
+rate for their type) and one PyTorch library call on the same inputs (a
+float32 cuBLAS product; the port never calls it).
 Each path (the pipeline on, haplotag_score, the bench) runs with the launch
 counts set to 0 just before it and read just after, and fails if a kernel
 of that path never launched.  Any failure exits non-zero.  The
@@ -49,6 +59,9 @@ import time
 import numpy as np
 
 TOLERANCE = "exact (torch.equal on int32 hap/pc/best)"
+# an H100 SXM's published peaks (HBM3 bandwidth, dense tensor/FP32 rates)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}
 
 
 def _median_ms(fn, reps: int = 20) -> float:
@@ -66,6 +79,35 @@ def _median_ms(fn, reps: int = 20) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def _turns(kernel, plain, rounds: int = 3, reps: int = 20):
+    """(kernel ms, plain ms): medians over `rounds` turns of (plain, kernel,
+    kernel, plain), each turn the median of `reps` launches."""
+    ks, ps = [], []
+    for _ in range(rounds):
+        ps.append(_median_ms(plain, reps))
+        ks.append(_median_ms(kernel, reps))
+        ks.append(_median_ms(kernel, reps))
+        ps.append(_median_ms(plain, reps))
+    return float(np.median(ks)), float(np.median(ps))
+
+
+def _bound(nbytes: float, ops: float, kind: str) -> dict:
+    """The least time the card could take: bytes moved once over the memory
+    rate against the operations over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def score_bound(rows: int, S: int, K: int, n_tasks: int, lhs_bytes: int):
+    """A score launch: the lhs (`lhs_bytes` a cell: 3 for int8 alleles +
+    bf16 weights, 4 for aw + |aw|), each task's bf16 rhs and three int32
+    outputs a row, once each; 2 * rows * S * K bf16 products."""
+    return _bound(rows * S * lhs_bytes + n_tasks * S * K * 2 + 3 * rows * 4,
+                  2.0 * rows * S * K, "bf16")
 
 
 def pipeline_shaped_inputs(seed: int, n_tasks: int = 16, rows: int = 256,
@@ -100,31 +142,52 @@ def pipeline_shaped_inputs(seed: int, n_tasks: int = 16, rows: int = 256,
     return A, W, rhs
 
 
-def edge_case_inputs(seed: int):
-    """Small odd shapes: S and rows off the tile sizes, K < 128, tied
-    block weights, all-zero rows, rows whose sites are all unphased."""
-    rows, S, K, T = 100, 1000, 40, 3
+def score_edge_inputs(seed: int, T: int, rows: int, S: int, K: int):
+    """Pipeline-shaped chunks with, in each task as far as its rows go: an
+    all-zero row, a row whose sites are all unphased, a row whose weight
+    ties two blocks (when K leaves room for blocks 4 and 9) and a row
+    flipped to a negative signed sum."""
     A, W, rhs = pipeline_shaped_inputs(seed, T, rows, S, K, K - 2)
     rng = np.random.default_rng(seed + 1)
+    lo, tie = S // 2, S // 2 + 100
     for t in range(T):
         base = t * rows
         A[base + 0] = 0                            # total 0
         W[base + 0] = 0
         blk = rhs[t * S:(t + 1) * S]
-        blk[500:520, 0] = 0                        # unphased sites
-        blk[500:520, 1] = 0
-        A[base + 1] = 0
-        A[base + 1, 500:520] = 1
-        W[base + 1, 500:520] = 7
-        # tie: two blocks with the same summed weight on one read
-        blk[600:610, 2:] = 0
-        blk[600:605, 2 + 4] = 1
-        blk[605:610, 2 + 9] = 1
-        A[base + 2] = 0
-        A[base + 2, 600:610] = rng.choice([-1, 1], 10)
-        W[base + 2, 600:610] = 20
-        A[base + 3] = -A[base + 3]                 # flip to negative signed
-    return A, W, rhs, T, K - 2
+        blk[lo:lo + 20, 0] = 0                     # unphased sites
+        blk[lo:lo + 20, 1] = 0
+        if rows > 1:
+            A[base + 1] = 0
+            A[base + 1, lo:lo + 20] = 1
+            W[base + 1, lo:lo + 20] = 7
+        if rows > 2 and K - 2 > 9:
+            # tie: two blocks with the same summed weight on one read
+            blk[tie:tie + 10, 2:] = 0
+            blk[tie:tie + 5, 2 + 4] = 1
+            blk[tie + 5:tie + 10, 2 + 9] = 1
+            A[base + 2] = 0
+            A[base + 2, tie:tie + 10] = rng.choice([-1, 1], 10)
+            W[base + 2, tie:tie + 10] = 20
+        if rows > 3:
+            A[base + 3] = -A[base + 3]             # flip to negative signed
+    return A, W, rhs
+
+
+def edge_case_inputs(seed: int):
+    """Small odd shapes: S and rows off the tile sizes, K < 128, tied
+    block weights, all-zero rows, rows whose sites are all unphased."""
+    T, K = 3, 40
+    return (*score_edge_inputs(seed, T, 100, 1000, K), T, K - 2)
+
+
+# (K, S, rows) of [score edges]: K below, at and above one n8 tile, one
+# 128-column slab and two; S off the 16-byte copy (777, 1000: element-wise
+# staging) and off the 64-site stage with whole copies (1040); rows off the
+# 64- and 128-row tiles
+SCORE_EDGE_SHAPES = [(K, S, rows) for K in (3, 9, 66, 72, 130, 256)
+                     for S, rows in ((777, 100), (1000, 1000), (2304, 1),
+                                     (1040, 100))]
 
 
 def bench_inputs(B: int = 64, seed: int = 0):
@@ -174,6 +237,33 @@ def _require_launches(counts: dict, names, path: str) -> None:
         raise AssertionError(f"{path} never launched {missing}: {counts}")
 
 
+def ptxas_info(log: str) -> list[str]:
+    """One line per kernel instantiation from nvcc's -Xptxas -v output:
+    its name (score kernels: lhs variant, warps, stages), registers,
+    spills, stack and static shared memory.  The score kernel's ring is
+    dynamic shared memory, printed per launch by the phases."""
+    import re
+
+    out, name, spill = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            mangled = m.group(1)
+            v = re.search(r"(FusedAw|GivenAw)E(?:Li(\d+)ELi(\d+)E)?",
+                          mangled)
+            name = ("sweep" if "sweep" in mangled else mangled) if not v \
+                else f"score<{v.group(1)}>" if not v.group(2) \
+                else f"score<{v.group(1)}, {v.group(2)} warps, " \
+                     f"{v.group(3)} stages>"
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln and name:
+            out.append(f"{name}: {ln.split('info    :')[-1].strip()}, "
+                       f"{spill}")
+            name, spill = None, ""
+    return out
+
+
 def phase_card(report: dict) -> None:
     import torch
 
@@ -192,52 +282,72 @@ def phase_card(report: dict) -> None:
         f"{n} {cuda_build.BUILD_INFO[n]['seconds']} s (fresh build: "
         f"{cuda_build.BUILD_INFO[n]['built']})"
         for n in ("haplotag_score", "haplotag_sweep"))
-    ptxas = [f"{n}: {ln.strip()}" for n in ("haplotag_score", "haplotag_sweep")
-             for ln in cuda_build.BUILD_INFO[n]["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
+    report["ptxas"] = ptxas = [
+        info for n in ("haplotag_score", "haplotag_sweep")
+        for info in ptxas_info(cuda_build.BUILD_INFO[n]["log"])]
     print(f"[card] {report['card']} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | kernels built in parallel in {wall:.1f} s: "
-          f"{builds} | ptxas: {' ; '.join(ptxas)}", flush=True)
+          f"{builds} | ptxas -v: {' ; '.join(ptxas)}", flush=True)
+
+
+def _on_card(A, W, rhs):
+    import torch
+
+    return (torch.from_numpy(A).cuda(),
+            torch.from_numpy(W).to(torch.bfloat16).cuda(),
+            torch.from_numpy(rhs).to(torch.bfloat16).cuda())
+
+
+def _shape_note(shape: dict) -> str:
+    return (f"{shape['warps']} warps x {shape['stages']} stages, "
+            f"{shape['smem_bytes']} B dynamic smem")
 
 
 def phase_kernel(report: dict) -> None:
     import torch
 
-    from duet_tpu_torch.ops.haplotag import phase_and_tag_batch
-    from duet_tpu_torch.ops.haplotag_kernel import haplotag_score_batch
+    from duet_tpu_torch.ops.haplotag import _aw, phase_and_tag_batch
+    from duet_tpu_torch.ops.haplotag_kernel import (haplotag_score_batch,
+                                                    score_launch_shape)
 
-    def on_card(A, W, rhs):
-        return (torch.from_numpy(A).cuda(),
-                torch.from_numpy(W).to(torch.bfloat16).cuda(),
-                torch.from_numpy(rhs).to(torch.bfloat16).cuda())
-
+    T, rows, S, K, nb = 16, 256, 2304, 128, 126
     A, W, rhs = pipeline_shaped_inputs(seed=2024)
-    a, w, r = on_card(A, W, rhs)
-    got = haplotag_score_batch(a, w, r, 16, 126)
-    want = phase_and_tag_batch(a, w, r, 16, 126)
+    a, w, r = _on_card(A, W, rhs)
+    got = haplotag_score_batch(a, w, r, T, nb)
+    want = phase_and_tag_batch(a, w, r, T, nb)
     _require_equal(got, want, ("hap", "pc", "best"), "pipeline shape")
     worst = _max_abs_err(got, want)
     tagged = float((got[0] != 0).float().mean())
-    ms = _median_ms(lambda: haplotag_score_batch(a, w, r, 16, 126))
-    plain_ms = _median_ms(lambda: phase_and_tag_batch(a, w, r, 16, 126))
+    ms, plain_ms = _turns(lambda: haplotag_score_batch(a, w, r, T, nb),
+                          lambda: phase_and_tag_batch(a, w, r, T, nb))
+    aw32 = _aw(a, w).reshape(T, rows, S)
+    rhs32 = r.float().reshape(T, S, K)
+    library_ms = _median_ms(lambda: torch.bmm(aw32, rhs32))
     for seed in (1, 2, 3):
-        A, W, rhs, T, nb = edge_case_inputs(seed)
-        a2, w2, r2 = on_card(A, W, rhs)
-        _require_equal(haplotag_score_batch(a2, w2, r2, T, nb),
-                       phase_and_tag_batch(a2, w2, r2, T, nb),
+        A, W, rhs, T2, nb2 = edge_case_inputs(seed)
+        a2, w2, r2 = _on_card(A, W, rhs)
+        _require_equal(haplotag_score_batch(a2, w2, r2, T2, nb2),
+                       phase_and_tag_batch(a2, w2, r2, T2, nb2),
                        ("hap", "pc", "best"), f"edge case seed {seed}")
-    report["kernel"] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": worst}
-    print(f"[kernel] haplotag_score == plain ({TOLERANCE}) at T=16 x 256 "
-          f"rows, S=2304, K=128, n_blocks=126 ({tagged:.3f} rows tagged) and "
-          f"on 3 edge-case sets; median {ms:.4f} ms vs plain "
-          f"{plain_ms:.4f} ms on {report['card']}", flush=True)
+    shape = score_launch_shape(T, rows, K, True)
+    report["kernel"] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": worst,
+                        "library_ms": library_ms,
+                        **score_bound(T * rows, S, K, T, 3)}
+    print(f"[kernel] haplotag_score == plain ({TOLERANCE}) at T={T} x "
+          f"{rows} rows, S={S}, K={K}, n_blocks={nb} ({tagged:.3f} rows "
+          f"tagged) and on 3 edge-case sets; launch {_shape_note(shape)}; "
+          f"median {ms:.4f} ms vs plain {plain_ms:.4f} ms vs library "
+          f"(float32 bmm of a prebuilt aw) {library_ms:.4f} ms, bound "
+          f"{report['kernel']['bound_ms']:.4f} ms "
+          f"({report['kernel']['bound_by']}) on {report['card']}",
+          flush=True)
 
     # rhs wider than one 128-column slab: K = 256 at the pipeline shape,
     # and K = 130 (two columns into the second slab) off the tile sizes
     parts = []
     for seed, T, rows, S, K in ((5, 16, 256, 2304, 256), (6, 3, 100, 1000, 130)):
         A, W, rhs = pipeline_shaped_inputs(seed, T, rows, S, K, K - 2)
-        a, w, r = on_card(A, W, rhs)
+        a, w, r = _on_card(A, W, rhs)
         got = haplotag_score_batch(a, w, r, T, K - 2)
         _require_equal(got, phase_and_tag_batch(a, w, r, T, K - 2),
                        ("hap", "pc", "best"), f"K={K}")
@@ -247,10 +357,39 @@ def phase_kernel(report: dict) -> None:
           f"{' and '.join(parts)}", flush=True)
 
 
+def phase_score_edges(report: dict) -> None:
+    """Both score entries on SCORE_EDGE_SHAPES: the batched one (3 tasks)
+    and the precomputed-aw one (task 0's rows and rhs)."""
+    import torch
+
+    from duet_tpu_torch.ops.haplotag import (haplotag_score_plain,
+                                             phase_and_tag_batch)
+    from duet_tpu_torch.ops.haplotag_kernel import (haplotag_score_batch,
+                                                    haplotag_score_pre)
+
+    T = 3
+    for K, S, rows in SCORE_EDGE_SHAPES:
+        a, w, r = _on_card(*score_edge_inputs(K + S + rows, T, rows, S, K))
+        what = f"K={K} S={S} rows={rows}"
+        _require_equal(haplotag_score_batch(a, w, r, T, K - 2),
+                       phase_and_tag_batch(a, w, r, T, K - 2),
+                       ("hap", "pc", "best"), f"batched {what}")
+        aw = a[:rows].to(torch.bfloat16) * w[:rows]
+        abs_aw = aw.abs()
+        r0 = r[:S].contiguous()
+        _require_equal(haplotag_score_pre(aw, abs_aw, r0, K - 2),
+                       haplotag_score_plain(aw, abs_aw, r0, K - 2),
+                       ("hap", "pc", "best"), f"precomputed aw {what}")
+    print(f"[score edges] batched and precomputed-aw score kernels == plain "
+          f"({TOLERANCE}) on {len(SCORE_EDGE_SHAPES)} shapes (K x S x rows: "
+          f"{', '.join(f'{k}x{s}x{n}' for k, s, n in SCORE_EDGE_SHAPES)})",
+          flush=True)
+
+
 def phase_sweep(report: dict) -> None:
     import torch
 
-    from duet_tpu_torch.ops.haplotag import power_sweep_votes
+    from duet_tpu_torch.ops.haplotag import _aw, power_sweep_votes
     from duet_tpu_torch.ops.haplotag_kernel import power_sweep
 
     parts = []
@@ -262,21 +401,33 @@ def phase_sweep(report: dict) -> None:
         got = power_sweep(a, w16, p16)
         want = power_sweep_votes(a, w16, p16)
         _require_equal([got], [want], ["votes"], f"sweep, {label}")
-        ms = _median_ms(lambda: power_sweep(a, w16, p16))
-        plain_ms = _median_ms(lambda: power_sweep_votes(a, w16, p16))
-        if label == "bench":
-            report["sweep"] = {"ms": ms, "plain_ms": plain_ms,
-                               "max_abs_err": float((got - want).abs().max())}
-        parts.append(f"{label} R={a.shape[0]} S={a.shape[1]}: {ms:.4f} ms vs "
-                     f"plain {plain_ms:.4f} ms")
+        if label != "bench":
+            continue
+        ms, plain_ms = _turns(lambda: power_sweep(a, w16, p16),
+                              lambda: power_sweep_votes(a, w16, p16))
+        aw32, p32 = _aw(a, w16), p16.float()
+        library_ms = _median_ms(lambda: aw32.T @ torch.sign(aw32 @ p32))
+        R, S = a.shape
+        # alleles + weights once, the phase in and the votes out; two
+        # multiply-adds an element (h, then the votes) on CUDA cores
+        report["sweep"] = {"ms": ms, "plain_ms": plain_ms,
+                           "library_ms": library_ms,
+                           "max_abs_err": float((got - want).abs().max()),
+                           **_bound(R * S * 3 + S * 2 + S * 4, 4.0 * R * S,
+                                    "fp32")}
+        parts.append(f"{label} R={R} S={S}: {ms:.4f} ms vs plain "
+                     f"{plain_ms:.4f} ms vs library (two float32 gemvs) "
+                     f"{library_ms:.4f} ms, bound "
+                     f"{report['sweep']['bound_ms']:.4f} ms")
     print(f"[sweep] haplotag_sweep == power_sweep_votes (torch.equal on "
-          f"float32 votes; edge shapes hold 70 all-zero rows and zero-phase "
-          f"sites); median {'; '.join(parts)}", flush=True)
+          f"float32 votes, also on 2 edge shapes with 70 all-zero rows and "
+          f"zero-phase sites); median {'; '.join(parts)}", flush=True)
 
 
 def phase_fused(report: dict) -> None:
     from duet_tpu_torch.ops import haplotag_kernel
-    from duet_tpu_torch.ops.haplotag import phase_and_tag, phase_and_tag_batch
+    from duet_tpu_torch.ops.haplotag import (_aw, phase_and_tag,
+                                             phase_and_tag_batch)
 
     keys = ("hap", "pc", "best_block", "phase")
     parts = []
@@ -286,34 +437,44 @@ def phase_fused(report: dict) -> None:
         want = phase_and_tag(a, w, p, oh, sweeps)
         _require_equal([got[k] for k in keys], [want[k] for k in keys], keys,
                        f"fused B={B} sweeps={sweeps}")
-        ms = _median_ms(
-            lambda: haplotag_kernel.phase_and_tag_fused(a, w16, p, oh, sweeps),
-            reps=10)
-        plain_ms = _median_ms(lambda: phase_and_tag(a, w, p, oh, sweeps),
-                              reps=10)
+        if (B, sweeps) != (64, 2):
+            parts.append(f"B={B} sweeps={sweeps} (best block up to "
+                         f"{int(got['best_block'].max())})")
+            continue
+        ms, plain_ms = _turns(
+            lambda: haplotag_kernel.phase_and_tag_fused(a, w16, p, oh, 2),
+            lambda: phase_and_tag(a, w, p, oh, 2), reps=10)
+        report["fused"] = {"ms": ms, "plain_ms": plain_ms}
         parts.append(f"B={B} sweeps={sweeps}: {ms:.4f} ms vs plain "
-                     f"{plain_ms:.4f} ms (best block up to "
-                     f"{int(got['best_block'].max())})")
-        if (B, sweeps) == (64, 2):
-            report["fused"] = {"ms": ms, "plain_ms": plain_ms}
-            # the shared-rhs score launch alone, on the refined phase
-            rhs = haplotag_kernel._rhs(got["phase"], oh)
-            shared = haplotag_kernel._score_batch(
-                "haplotag_score_shared", a, w16, rhs, 1, B)
-            plain = phase_and_tag_batch(a, w16, rhs, 1, B)
-            _require_equal(shared, plain, ("hap", "pc", "best"),
-                           "shared-rhs score launch")
-            report["shared"] = {
-                "max_abs_err": _max_abs_err(shared, plain),
-                "ms": _median_ms(lambda: haplotag_kernel._score_batch(
-                    "haplotag_score_shared", a, w16, rhs, 1, B)),
-                "plain_ms": _median_ms(
-                    lambda: phase_and_tag_batch(a, w16, rhs, 1, B))}
+                     f"{plain_ms:.4f} ms")
+        # the shared-rhs score launch alone, on the refined phase
+        rhs = haplotag_kernel._rhs(got["phase"], oh)
+        shared = haplotag_kernel._score_batch(
+            "haplotag_score_shared", a, w16, rhs, 1, B)
+        plain = phase_and_tag_batch(a, w16, rhs, 1, B)
+        _require_equal(shared, plain, ("hap", "pc", "best"),
+                       "shared-rhs score launch")
+        ms, plain_ms = _turns(
+            lambda: haplotag_kernel._score_batch(
+                "haplotag_score_shared", a, w16, rhs, 1, B),
+            lambda: phase_and_tag_batch(a, w16, rhs, 1, B))
+        aw32, rhs32 = _aw(a, w16), rhs.float()
+        R, S = a.shape
+        report["shared"] = {
+            "max_abs_err": _max_abs_err(shared, plain), "ms": ms,
+            "plain_ms": plain_ms,
+            "library_ms": _median_ms(lambda: aw32 @ rhs32),
+            "shape": haplotag_kernel.score_launch_shape(1, R, rhs.shape[1],
+                                                        True),
+            **score_bound(R, S, rhs.shape[1], 1, 3)}
+    sh = report["shared"]
     print(f"[fused] phase_and_tag_fused == phase_and_tag ({TOLERANCE} and "
           f"int8 phase) at R={a.shape[0]}, S={a.shape[1]}; median "
-          f"{'; '.join(parts)}; the "
-          f"shared-rhs score launch alone {report['shared']['ms']:.4f} ms vs "
-          f"plain {report['shared']['plain_ms']:.4f} ms", flush=True)
+          f"{'; '.join(parts)}; the shared-rhs score launch alone "
+          f"({_shape_note(sh['shape'])}) {sh['ms']:.4f} ms vs plain "
+          f"{sh['plain_ms']:.4f} ms vs library (float32 aw @ rhs, prebuilt "
+          f"aw) {sh['library_ms']:.4f} ms, bound {sh['bound_ms']:.4f} ms "
+          f"({sh['bound_by']})", flush=True)
 
 
 def phase_score_pre(report: dict) -> None:
@@ -341,16 +502,29 @@ def phase_score_pre(report: dict) -> None:
         rhs = haplotag_kernel._rhs(p, oh)
         want = haplotag_score_plain(aw, abs_aw, rhs, B)
         _require_equal(got, want, ("hap", "pc", "best"), f"score_pre B={B}")
-        ms = _median_ms(
-            lambda: haplotag_kernel.haplotag_score_pre(aw, abs_aw, rhs, B))
-        plain_ms = _median_ms(lambda: haplotag_score_plain(aw, abs_aw, rhs, B))
-        if B == 64:
-            report["score_pre"] = {"ms": ms, "plain_ms": plain_ms,
-                                   "max_abs_err": _max_abs_err(got, want)}
-        parts.append(f"B={B}: {ms:.4f} ms vs plain {plain_ms:.4f} ms")
+        if B != 64:
+            parts.append(f"B={B}")
+            continue
+        ms, plain_ms = _turns(
+            lambda: haplotag_kernel.haplotag_score_pre(aw, abs_aw, rhs, B),
+            lambda: haplotag_score_plain(aw, abs_aw, rhs, B))
+        aw32, rhs32 = aw.float(), rhs.float()
+        R, S = aw.shape
+        report["score_pre"] = {
+            "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": _max_abs_err(got, want),
+            "library_ms": _median_ms(lambda: aw32 @ rhs32),
+            "shape": haplotag_kernel.score_launch_shape(1, R, rhs.shape[1],
+                                                        False),
+            **score_bound(R, S, rhs.shape[1], 1, 4)}
+        sp = report["score_pre"]
+        parts.append(f"B={B} ({_shape_note(sp['shape'])}): {ms:.4f} ms vs "
+                     f"plain {plain_ms:.4f} ms vs library (float32 aw @ rhs) "
+                     f"{sp['library_ms']:.4f} ms, bound {sp['bound_ms']:.4f} "
+                     f"ms ({sp['bound_by']})")
     print(f"[score_pre] haplotag_score == haplotag_score_plain ({TOLERANCE}) "
-          f"at R={a.shape[0]}, S={a.shape[1]}; the kernel on the given aw, median "
-          f"{'; '.join(parts)}; launches in the path "
+          f"at R={a.shape[0]}, S={a.shape[1]}; the kernel on the given aw, "
+          f"median {'; '.join(parts)}; launches in the path "
           f"{report['launches_score_pre']}", flush=True)
 
 
@@ -549,6 +723,7 @@ def main() -> int:
     try:
         phase_card(report)
         phase_kernel(report)
+        phase_score_edges(report)
         phase_sweep(report)
         phase_fused(report)
         phase_score_pre(report)
@@ -579,6 +754,9 @@ def main() -> int:
         "max_abs_err": report[key]["max_abs_err"],
         "ms": report[key]["ms"],
         "plain_ms": report[key]["plain_ms"],
+        "bound_ms": report[key]["bound_ms"],
+        "bound_by": report[key]["bound_by"],
+        "library_ms": report[key]["library_ms"],
     } for name, source, replaces, key in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,13 +8,18 @@ to find:
 - ``duet_tpu_torch.device``  — the explicit device choice (``--device``)
 - ``duet_tpu_torch.ops``     — device kernels: plain torch versions, plus
                                hand-written CUDA kernels under ``csrc/``
-- ``duet_tpu_torch.models``  — the device branches of the pipeline stages
-- ``duet_tpu_torch.utils``   — per-stage device cost accounting
+- ``duet_tpu_torch.models``  — the pipeline stages: the device branches,
+                               and copies of the host code (``*_host``)
+- ``duet_tpu_torch.io``, ``sim``, ``utils`` — copies of duet_tpu's
+                               framework-free host layers (BAM/VCF/FASTA
+                               I/O, native ingest, the simulator, contig
+                               naming, logging, dispatch accounting) plus
+                               per-stage device cost accounting
 - ``duet_tpu_torch.pipeline`` / ``cli`` — the batch pipeline and its CLI
 
-Framework-free host layers (``io``, ``native`` ingest, ``sim``, ``eval``,
-the numpy stage code) are imported from ``duet_tpu``, never copied; this
-package imports no JAX.
+The package stands alone: it imports nothing of ``duet_tpu`` and no JAX.
+Its copies keep duet_tpu's code verbatim but for imports and dropped JAX
+branches; the tests hold each copy against its original.
 """
 
 __version__ = "0.1.0"

@@ -199,8 +199,8 @@ def bench_e2e(megabases: float, device_stages: str,
         # standalone decoder throughput (best of 3), so the e2e ingest share
         # is attributable to the decoder vs everything else
         decode_s = None
-        from duet_tpu.io.native_ingest import (NativeUnavailable,
-                                               load_read_store_native)
+        from duet_tpu_torch.io.native_ingest import (
+            NativeUnavailable, load_read_store_native)
 
         bam = os.path.join(data, "reads.bam")
         try:

@@ -1,8 +1,8 @@
 """Command-line entry point: `duet-tpu-torch <BAM> <REFERENCE.fa> <OUTPUT_DIR>`.
 
-The flag set of ``duet-tpu`` (its parser is reused) plus ``--device
-{cuda,cpu}``, the explicit device of the port's device routes (default
-cuda).  Modes the port does not run yet — --stream, --phase-only, --resume,
+The flag set of ``duet-tpu`` (a copy of its parser, help texts included)
+plus ``--device {cuda,cpu}``, the explicit device of the port's device
+routes (default cuda).  Modes the port does not run yet — --stream, --phase-only, --resume,
 --mesh, --profile and multi-process runs — raise NotImplementedError
 instead of being ignored.
 """
@@ -12,16 +12,110 @@ from __future__ import annotations
 import argparse
 import sys
 
-from duet_tpu import cli as _ref
 from duet_tpu_torch.pipeline import PipelineConfig, _not_ported, run_pipeline
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = _ref.build_parser()
-    p.prog = "duet-tpu-torch"
-    p.description = ("SNP-assisted structural-variant calling and phasing "
+    p = argparse.ArgumentParser(
+        prog="duet-tpu-torch",
+        description=("SNP-assisted structural-variant calling and phasing "
                      "with its device work on PyTorch/CUDA: sorted indexed "
-                     "BAM + indexed FASTA -> phased_sv.vcf")
+                     "BAM + indexed FASTA -> phased_sv.vcf"),
+    )
+    p.add_argument("BAM", help="sorted, indexed BAM of aligned long reads")
+    p.add_argument("REFERENCE", help="indexed reference FASTA")
+    p.add_argument("OUTPUT", help="output directory")
+    p.add_argument("-t", "--threads", type=int, default=4,
+                   help="host worker threads (default 4)")
+    p.add_argument("-m", "--min_allele_frequency", type=float, default=0.25,
+                   help="min allele frequency for SNP calling (default 0.25)")
+    p.add_argument("-c", "--cluster_max_distance", type=float, default=0.9,
+                   help="span-position cluster distance for the svim-style "
+                        "linkage (default 0.9)")
+    p.add_argument("-s", "--sv_min_size", type=int, default=50,
+                   help="min SV size to call (default 50)")
+    p.add_argument("-r", "--min_support_read", type=int, default=2,
+                   help="min supporting reads per SV (default 2)")
+    p.add_argument("-a", "--include_all_ctgs", action="store_true",
+                   help="process all contigs, not just chr1-22/X/Y")
+    p.add_argument("-b", "--sv_caller", default="cutesv",
+                   choices=["cutesv", "sniffles", "svim"],
+                   help="signature-clustering mode: cutesv/sniffles = gap "
+                        "linkage, svim = span-position linkage (default cutesv)")
+    p.add_argument("--resume", action="store_true",
+                   help="skip stages whose artifacts already exist in OUTPUT")
+    p.add_argument("--stream", action="store_true",
+                   help="contig-major streaming run: bounds memory to one "
+                        "contig's reads (whole-genome inputs)")
+    p.add_argument("--phase-only", action="store_true",
+                   help="run only the final SV-phasing stage from existing "
+                        "artifacts in OUTPUT (sv_calling/variants.vcf + "
+                        "snp_phasing/ haplotag tables or haplotagged BAMs)")
+    p.add_argument("--host-kernel", action="store_true",
+                   help="run the decision stage on host (float64) instead of "
+                        "the device kernel")
+    p.add_argument("--device-stages", default="auto",
+                   choices=["auto", "on", "off"],
+                   help="route pileup counting and SV clustering through the "
+                        "jitted device kernels: auto = when an accelerator "
+                        "is live (default), on/off = force")
+    p.add_argument("--mesh", default=None, metavar="DP,SP",
+                   help="run the phasing/clustering stages sharded over a "
+                        "(data-parallel, sequence-parallel) device mesh, "
+                        "e.g. --mesh 4,2; 'auto' uses all visible devices "
+                        "on the dp axis")
+    p.add_argument("--phase-bnd", action="store_true",
+                   help="genotype and phase breakend (BND) junctions through "
+                        "the decision stage too (the reference filters them "
+                        "out with SVLEN<min_size)")
+    p.add_argument("--snp-model", default="auto",
+                   choices=["auto", "counts", "nn"],
+                   help="SNP-calling model: 'auto' (default) picks per "
+                        "contig from the data's measured error rate and "
+                        "coverage (the nn wins only at >=3.5%% observed "
+                        "substitutions and >=7x — the measured grid in "
+                        "README); 'counts' is the exact-rational counting "
+                        "rule, 'nn' the neural pileup caller "
+                        "(models/nn_snp.py — the MXU analogue of Clair3's "
+                        "pileup network)")
+    p.add_argument("--decision-model", default="verbatim",
+                   choices=["verbatim", "learned"],
+                   help="genotype/phase decision layer: the reference's "
+                        "verbatim T1-T5 tree (default, byte-parity "
+                        "contract) or a CART refit on framework features "
+                        "from simulation truth (models/decision_model.py "
+                        "-- the reference tree's magnitude thresholds were "
+                        "tuned on WhatsHap PCs and are dead code on "
+                        "framework data, docs/PC_SCALE.md)")
+    p.add_argument("--min-junction-evidence", type=float, default=0.0,
+                   metavar="E",
+                   help="end phase-set blocks at junctions whose converged "
+                        "spanning evidence is below the ABSOLUTE threshold "
+                        "E (capped at the block's median/20) — explicit "
+                        "override of the default adaptive rule "
+                        "(docs/PC_SCALE.md). 0 keeps the adaptive rule")
+    p.add_argument("--junction-split", default="adaptive",
+                   choices=["adaptive", "off"],
+                   help="coverage-adaptive weak-junction phase-set "
+                        "splitting (default on): split where converged "
+                        "junction evidence is a >=20x outlier vs its "
+                        "block's median and the spanning reads disagree or "
+                        "number <=1 — no absolute scale, so low coverage "
+                        "does not backfire (docs/PC_SCALE.md)")
+    p.add_argument("--haplotag-bam", action="store_true",
+                   help="also write per-contig haplotagged BAMs with "
+                        "HP/PC/PS tags (reference artifact parity)")
+    p.add_argument("--profile", action="store_true",
+                   help="capture a JAX profiler trace of the run into "
+                        "OUTPUT/profile/ (view with TensorBoard or Perfetto)")
+    mh = p.add_argument_group(
+        "multi-host", "run one process per host against a shared OUTPUT dir: "
+        "contigs are round-robin owned, stage outputs exchanged as part "
+        "files, process 0 writes the final artifacts")
+    mh.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                    help="jax.distributed coordinator address (process 0's)")
+    mh.add_argument("--num-processes", type=int, default=None)
+    mh.add_argument("--process-id", type=int, default=None)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="device of the device routes: cuda (default; fails "
                         "when no GPU is visible) or cpu (the same torch "

@@ -1,9 +1,9 @@
 """The neural pileup SNP caller as a torch ``nn.Module``.
 
 Port of the inference half of ``duet_tpu.models.nn_snp``: the same 51 -> 64
--> 64 -> 3 MLP over the same features (``extract_features``, shared), with
-the JAX package's shipped weights loaded through its own loader
-(``load_params``) and carried into PyTorch's layout by
+-> 64 -> 3 MLP over the same features (``extract_features``), with the
+shipped weights (a copy in ``duet_tpu_torch/models/weights/``) loaded by
+``load_params`` (both in ``nn_snp_host``) and carried into PyTorch's layout by
 ``params_from_numpy``.  Classes: 0 non-variant, 1 het, 2 hom-alt.
 Training stays in the JAX package for now.
 """
@@ -14,7 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from duet_tpu.models.nn_snp import (
+from duet_tpu_torch.models.nn_snp_host import (
     HIDDEN,
     N_CLASSES,
     N_FEATURES,
@@ -54,7 +54,7 @@ def params_from_numpy(params: dict[str, np.ndarray]) -> SnpMLP:
 
 def load_model(path: str | None = None,
                device: torch.device = torch.device("cpu")) -> SnpMLP:
-    """The shipped weights (``duet_tpu/models/weights/nn_snp_v2.npz``, or
+    """The shipped weights (``models/weights/nn_snp_v2.npz``, or
     `path`) as an SnpMLP on `device`."""
     return params_from_numpy(load_params(path)).to(device)
 
@@ -66,9 +66,9 @@ def nn_call_snps(contig: str, counts: np.ndarray, ref_codes: np.ndarray,
     """ContigSnps via the network (drop-in for snp_caller.call_snps).
 
     Mirrors ``duet_tpu.models.nn_snp.nn_call_snps``: candidate sites from
-    the shared gate, features from the shared extractor, then one forward
+    the candidate gate, features from the extractor, then one forward
     pass per `batch` candidates on `device`."""
-    from duet_tpu.models.snp_caller import ContigSnps
+    from duet_tpu_torch.models.snp_caller_host import ContigSnps
     from duet_tpu_torch.device import require
 
     pos, alt_code, alt_count, depth = candidate_sites(counts, ref_codes)

@@ -2,8 +2,8 @@
 
 Port of the device branches of ``duet_tpu.models.snp_caller``.  The packers
 (``match_op_table``, ``_pack_codes``, ``_nibble_pack``), the host recount
-``_host_window``, the counting rule and the VCF writers are shared with the
-JAX package; the functions here are copies of its dispatch functions with
+``_host_window``, the counting rule and the VCF writers are the port's
+copies in ``snp_caller_host``; the functions here are copies of its dispatch functions with
 the device lines changed to the torch kernel (``ops.pileup``) and the
 neural caller to the torch module (``models.nn_snp``).  `device` is the
 torch device a device route runs on.
@@ -14,8 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from duet_tpu.io.readstore import ReadStore
-from duet_tpu.models.snp_caller import (
+from duet_tpu_torch.io.readstore import ReadStore
+from duet_tpu_torch.models.snp_caller_host import (
     DEVICE_MAX_SITE_DENSITY,
     DEVICE_PILEUP_WINDOW,
     ContigSnps,
@@ -42,7 +42,7 @@ def call_snps_any(contig: str, counts: np.ndarray, ref_codes: np.ndarray,
                   ) -> ContigSnps:
     """Mirrors ``duet_tpu.models.snp_caller.call_snps_any``: the counting
     rule, the neural caller (torch, on `nn_device`) or the auto policy."""
-    from duet_tpu.utils import dispatch
+    from duet_tpu_torch.utils import dispatch
     from duet_tpu_torch.models.nn_snp import nn_call_snps
 
     model = cfg.model
@@ -63,9 +63,8 @@ def _device_window(contig: str, ref_window: np.ndarray, cfg: SnpCallConfig,
     window-relative parts (pos, alt_code, is_het, depth, alt_count).  The
     JAX package's host recounts stay: at the 2^30-byte payload bound and on
     compaction overflow."""
-    from duet_tpu.utils import dispatch
     from duet_tpu_torch.ops.pileup import pileup_call_packed
-    from duet_tpu_torch.utils import devcost
+    from duet_tpu_torch.utils import devcost, dispatch
 
     if len(packed) >= 1 << 30:
         # int32 bound: query offsets and the observation total index this
@@ -242,7 +241,7 @@ def call_contig_snps(contig: str, cr, ref_codes: np.ndarray,
     (cfg.device) implements the counting rule ('auto' resolves to it);
     otherwise the native counting pass, or the python counting when the
     native library is unavailable (a host-to-host fallback)."""
-    from duet_tpu.io.native_ingest import (
+    from duet_tpu_torch.io.native_ingest import (
         NativeUnavailable,
         pileup_counts_native,
         pileup_obs_native,

@@ -2,8 +2,8 @@
 reads of every contig in one batch (``score_contigs_batched``).
 
 The allele matrix, initial phasing, switch correction, weak-junction
-splitting, the host scorers and the sparse scorer's epilogue are shared with
-``duet_tpu.models.snp_phaser``.  The port's single-device read scorer is
+splitting, the host scorers and the sparse scorer's epilogue are the port's
+copies of ``duet_tpu.models.snp_phaser``'s (``snp_phaser_host``).  The port's single-device read scorer is
 chosen by ``HAPLOTAG_DEVICE_MODE``:
 
 - ``"dense"`` (the port's default): the windowed route — reads are cut into
@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from duet_tpu.models.snp_phaser import (
+from duet_tpu_torch.models.snp_phaser_host import (
     HAPLOTAG_B,
     HAPLOTAG_BATCH,
     REFINE_CORRECT_ROUNDS,
@@ -80,9 +80,8 @@ def _haplotag_device(am: AlleleMatrix, phase: np.ndarray,
     Chunks are flushed `batch` at a time as ONE kernel launch of the fixed
     shape (batch*256, S_w), with alleles int8 and weights / rhs built
     directly as bfloat16."""
-    from duet_tpu.utils import dispatch
     from duet_tpu_torch.ops.haplotag_kernel import haplotag_score_batch
-    from duet_tpu_torch.utils import devcost
+    from duet_tpu_torch.utils import devcost, dispatch
 
     if (mode or HAPLOTAG_DEVICE_MODE) == "sparse":
         return _haplotag_sparse_device(am, phase, block_id, block_ps, device)

@@ -1,9 +1,9 @@
 """Device glue of the SV-calling stage: clustering on torch.
 
 Signature extraction, the per-contig tables, genotyping, breakend calling
-and the VCF writer are shared with ``duet_tpu.models.sv_caller``; the
-functions here are its copies whose clustering goes through
-``duet_tpu_torch.ops.cluster`` (duet_tpu's ``ops.cluster`` imports jax).
+and the VCF writer are the port's copies of ``duet_tpu.models.sv_caller``'s
+(``sv_caller_host``); the functions here are copies of its stage functions
+whose clustering goes through ``duet_tpu_torch.ops.cluster``.
 """
 
 from __future__ import annotations
@@ -11,8 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from duet_tpu.io.readstore import ContigReads
-from duet_tpu.models.sv_caller import (
+from duet_tpu_torch.io.readstore import ContigReads
+from duet_tpu_torch.models.sv_caller_host import (
     SVTYPE_INS,
     TYPE_NAMES,
     ContigTables,
@@ -102,7 +102,7 @@ def call_svs_for_contig(cr: ContigReads, cfg: SvCallConfig,
         # lower-median length
         alt_seq = None
         if svtype == SVTYPE_INS:
-            from duet_tpu.io.fasta import decode_bases
+            from duet_tpu_torch.io.fasta import decode_bases
 
             for j in member_sigs:
                 q = sigs.qpos_or_none(j)

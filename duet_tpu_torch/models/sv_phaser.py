@@ -1,7 +1,8 @@
 """SV genotyping and phasing with the decision pass on torch.
 
 Packing, the regime and anchor logic, the float64 host features and the
-verbatim T1-T5 tree are shared with ``duet_tpu.models.sv_phaser``; the two
+verbatim T1-T5 tree are the port's copies of ``duet_tpu.models.sv_phaser``'s
+(``sv_phaser_host``); the two
 functions here are its copies whose device branch runs
 ``duet_tpu_torch.ops.phase_decide``.
 """
@@ -11,8 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from duet_tpu.io.vcf import SVRecord
-from duet_tpu.models.sv_phaser import (
+from duet_tpu_torch.io.vcf import SVRecord
+from duet_tpu_torch.models.sv_phaser_host import (
     HP_STRINGS,
     attach_read_haplotypes,
     build_oneps_set,
@@ -39,7 +40,7 @@ def phase_chromosome(
     """Mirrors ``duet_tpu.models.sv_phaser.phase_chromosome``: phased-call
     dicts of one chromosome (unsorted).  use_device runs the feature and
     decision pass on `device`, bit-identical to the float64 host path."""
-    from duet_tpu.utils import dispatch
+    from duet_tpu_torch.utils import dispatch
 
     attach_read_haplotypes(records, read_hap)
     kept = [
@@ -57,7 +58,7 @@ def phase_chromosome(
         return []
 
     if decision_model == "learned":
-        from duet_tpu.models.decision_model import decide_haplotype_learned
+        from duet_tpu_torch.models.decision_model import decide_haplotype_learned
 
         dispatch.record("sv_decide", "host")
         feats = compute_features(packed, regime, oneps)

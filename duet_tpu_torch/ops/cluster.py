@@ -186,8 +186,7 @@ def cluster_multi(svtype, pos, length, read_idx, linkage: int, md_by_type,
     the return contract of ``cluster_host_multi``.  `device` picks the
     torch route, run on `torch_device`; shapes are padded to a power of two
     with a 2048 floor, as in the JAX package."""
-    from duet_tpu.utils import dispatch
-    from duet_tpu_torch.utils import devcost
+    from duet_tpu_torch.utils import devcost, dispatch
 
     k = len(pos)
     if k == 0:

@@ -63,9 +63,26 @@ def _score_library() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.duet_haplotag_score_shape.argtypes = [ctypes.c_int] * 4 + \
+        [ctypes.POINTER(ctypes.c_int)] * 3
+    lib.duet_haplotag_score_shape.restype = ctypes.c_int
     lib.duet_cuda_error_string.argtypes = [ctypes.c_int]
     lib.duet_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def score_launch_shape(n_tasks: int, rows_per_task: int, K: int,
+                       fused: bool) -> dict[str, int]:
+    """The shape the score kernel launches with for these sizes on the
+    current CUDA device: warps per CTA, ring stages, dynamic shared memory
+    in bytes (for reports; the launch decides the same way)."""
+    lib = _score_library()
+    warps, stages, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rc = lib.duet_haplotag_score_shape(n_tasks, rows_per_task, K, int(fused),
+                                       warps, stages, smem)
+    _raise_on(rc, "haplotag_score_shape", lib.duet_cuda_error_string)
+    return {"warps": warps.value, "stages": stages.value,
+            "smem_bytes": smem.value}
 
 
 @functools.cache
@@ -121,17 +138,19 @@ def _score_launch(name: str, fn, lhs_a: torch.Tensor, lhs_b: torch.Tensor,
     """Launch the score kernel entry `fn` on CUDA tensors; (hap, pc, best)."""
     dev = lhs_a.device
     rows = lhs_a.shape[0]
-    hap, pc, best = (torch.empty(rows, dtype=torch.int32, device=dev)
-                     for _ in range(3))
+    # one allocation for the three outputs, addressed by offset: at the
+    # pipeline's launch shape the host's work per launch is a large share
+    # of the launch
+    out = torch.empty((3, rows), dtype=torch.int32, device=dev)
+    base = out.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(lhs_a.data_ptr(), lhs_b.data_ptr(), rhs.data_ptr(),
-                hap.data_ptr(), pc.data_ptr(), best.data_ptr(), n_tasks,
-                rows // n_tasks, lhs_a.shape[1], rhs.shape[1], n_blocks,
-                stream)
+        rc = fn(lhs_a.data_ptr(), lhs_b.data_ptr(), rhs.data_ptr(), base,
+                base + 4 * rows, base + 8 * rows, n_tasks, rows // n_tasks,
+                lhs_a.shape[1], rhs.shape[1], n_blocks, stream)
     _raise_on(rc, name, _score_library().duet_cuda_error_string)
     _count(name)
-    return hap, pc, best
+    return out.unbind(0)
 
 
 def _score_batch(name: str, alleles: torch.Tensor, weights16: torch.Tensor,
@@ -212,12 +231,15 @@ def power_sweep(alleles: torch.Tensor, weights16: torch.Tensor,
 
 
 def _rhs(phase: torch.Tensor, block_onehot: torch.Tensor) -> torch.Tensor:
-    """The shared (S, 2+B) bf16 rhs [phase | informative | block one-hot]."""
+    """The shared bf16 rhs [phase | informative | block one-hot], (S, 2+B)
+    zero-padded to a multiple of 8 columns: the score kernel stages rows of
+    16-byte multiples with cp.async (columns past 2+B are no block)."""
     S, B = block_onehot.shape
-    rhs = torch.zeros((S, 2 + B), dtype=torch.bfloat16, device=phase.device)
+    rhs = torch.zeros((S, -(-(2 + B) // 8) * 8), dtype=torch.bfloat16,
+                      device=phase.device)
     rhs[:, 0] = phase
     rhs[:, 1] = phase != 0
-    rhs[:, 2:] = block_onehot
+    rhs[:, 2:2 + B] = block_onehot
     return rhs
 
 

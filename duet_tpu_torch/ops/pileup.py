@@ -2,7 +2,7 @@
 
 The port of ``duet_tpu.ops.pileup``'s ``pileup_call_packed`` /
 ``_packed_impl``, ``_hist_counts`` and ``call_sites``.  Inputs are the
-shared packers' two uploads (``duet_tpu.models.snp_caller``):
+packers' two uploads (``models.snp_caller_host``):
 
   ops4        (4, K) int32  rows [ref_start, query_start (nibble index),
                             length] of the match-op table; row 3's first 8

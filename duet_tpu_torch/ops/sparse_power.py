@@ -70,8 +70,7 @@ def power_refine_device(am, phase: np.ndarray, block_id: np.ndarray,
                         sweeps: int = 2, device: torch.device = _CPU
                         ) -> np.ndarray:
     """Device twin of ``duet_tpu.models.snp_phaser._power_refine``."""
-    from duet_tpu.utils import dispatch
-    from duet_tpu_torch.utils import devcost
+    from duet_tpu_torch.utils import devcost, dispatch
 
     nnz = len(am.row)
     if nnz == 0 or am.n_sites == 0:
@@ -164,8 +163,7 @@ def haplotag_score_sparse_multi(items, device: torch.device = _CPU):
     best_block re-based to the item's own block table.  Raises ValueError
     past INT32_EXACT_NNZ (callers split batches below it) and on a block -1
     at an observed site."""
-    from duet_tpu.utils import dispatch
-    from duet_tpu_torch.utils import devcost
+    from duet_tpu_torch.utils import devcost, dispatch
 
     tot_nnz = sum(len(it[0].row) for it in items)
     if tot_nnz > INT32_EXACT_NNZ:
@@ -221,8 +219,7 @@ def haplotag_score_sparse(am, phase: np.ndarray, block_id: np.ndarray,
     am.n_reads; `overflow` marks reads whose observations span more than
     SLOT_K phase-set blocks — score those on the host.  best_block indexes
     block_ps.  Raises ValueError on a block -1 at an observed site."""
-    from duet_tpu.utils import dispatch
-    from duet_tpu_torch.utils import devcost
+    from duet_tpu_torch.utils import devcost, dispatch
 
     _check_blocks(am, block_id)
     nnz = len(am.row)

@@ -1,6 +1,6 @@
 """Per-stage device cost attribution: transfer vs compute vs readback.
 
-The torch twin of ``duet_tpu.utils.devcost`` with the same ``_FIELDS``, so
+The torch twin of ``duet_tpu.utils.devcost`` with its ``_FIELDS``, so
 ``metrics.json``'s ``device_cost`` block keeps its schema.  Every device
 call site splits its work into three timed phases:
 
@@ -24,8 +24,11 @@ import time
 import numpy as np
 import torch
 
-from duet_tpu.utils.devcost import _FIELDS
 from duet_tpu_torch.device import require, synchronize
+
+# the fields of duet_tpu.utils.devcost, in its order
+_FIELDS = ("h2d_bytes", "h2d_s", "worst_put_s", "n_puts", "compute_s",
+           "n_dispatch", "d2h_bytes", "d2h_s")
 
 _lock = threading.Lock()
 _acc: dict[str, dict[str, float]] = {}

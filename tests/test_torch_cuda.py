@@ -71,6 +71,31 @@ def test_kernel_wide_rhs_matches_plain(cuda_device, K):
         assert torch.equal(x, y), name
 
 
+@pytest.mark.parametrize("K,S,rows", chip_smoke.SCORE_EDGE_SHAPES)
+def test_score_kernels_on_edge_shapes(cuda_device, K, S, rows):
+    """Both score entries against their plain versions with K below, at and
+    above one n8 tile and one 128-column slab, S off the 64-site stage and
+    the 16-byte copy, rows off the row tiles, and all-zero rows, tied
+    blocks and negative signed sums in every task."""
+    T = 3
+    A, W, rhs = chip_smoke.score_edge_inputs(K + S + rows, T, rows, S, K)
+    a = torch.from_numpy(A).to(cuda_device)
+    w = torch.from_numpy(W).to(torch.bfloat16).to(cuda_device)
+    r = torch.from_numpy(rhs).to(torch.bfloat16).to(cuda_device)
+    got = haplotag_kernel.haplotag_score_batch(a, w, r, T, K - 2)
+    want = phase_and_tag_batch(a, w, r, T, K - 2)
+    aw = a[:rows].to(torch.bfloat16) * w[:rows]
+    r0 = r[:S].contiguous()
+    got_pre = haplotag_kernel.haplotag_score_pre(aw, aw.abs(), r0, K - 2)
+    want_pre = haplotag_score_plain(aw, aw.abs(), r0, K - 2)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("hap", "pc", "best"), got, want):
+        assert torch.equal(x, y), name
+    for name, x, y in zip(("hap", "pc", "best"), got_pre, want_pre):
+        assert torch.equal(x, y), f"precomputed aw {name}"
+    assert (got[0][::rows] == 0).all()          # the all-zero rows
+
+
 def _small_batch(seed, B):
     """Shapes off every tile size on the card: chip_smoke.py's sweep edge
     case (B = 5: all-zero rows, zero-phase sites), else a denser batch."""
@@ -123,7 +148,7 @@ def test_sparse_scorer_on_card_matches_cpu(cuda_device):
     """The sparse COO scorer's torch ops (int32 index_add_, scatter
     min/max, first-max argmax) on the card equal the same ops on the CPU,
     on reads spanning up to ~40 blocks (overflow) and entry-less reads."""
-    from duet_tpu.models.snp_phaser import AlleleMatrix
+    from duet_tpu_torch.models.snp_phaser_host import AlleleMatrix
     from duet_tpu_torch.ops.sparse_power import haplotag_score_sparse
 
     rng = np.random.default_rng(4)

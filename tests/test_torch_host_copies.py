@@ -1,0 +1,301 @@
+"""The port's copies of duet_tpu's host layers, held against the originals
+on the CPU: the simulator writes the same bytes, the readers build the same
+read store, the VCF parsers read duet_tpu's files into the same records, the
+VCF writers write duet_tpu's bytes from the same content, and the module
+constants, config defaults, CLI flags and shipped weights are equal.
+
+The port's dataclasses are classes of their own, so objects cross packages
+field by field (``_as``) and are compared field by field."""
+
+import dataclasses
+import gzip
+import os
+
+import numpy as np
+import pytest
+
+from duet_tpu import cli as j_cli
+from duet_tpu import pipeline as j_pipeline
+from duet_tpu.io import readstore as j_readstore
+from duet_tpu.io import vcf as j_vcf
+from duet_tpu.models import decision_model as j_decision
+from duet_tpu.models import nn_snp as j_nn
+from duet_tpu.models import snp_caller as j_snp
+from duet_tpu.models import snp_phaser as j_phaser
+from duet_tpu.models import sv_caller as j_sv
+from duet_tpu.models import sv_phaser as j_svp
+from duet_tpu.sim import SimConfig as JSimConfig
+from duet_tpu.sim import simulate_dataset as j_simulate
+from duet_tpu.utils import chrom as j_chrom
+from duet_tpu.utils import dispatch as j_dispatch
+from duet_tpu.utils import devcost as j_devcost
+from duet_tpu_torch import cli as t_cli
+from duet_tpu_torch import pipeline as t_pipeline
+from duet_tpu_torch.io import readstore as t_readstore
+from duet_tpu_torch.io import vcf as t_vcf
+from duet_tpu_torch.models import decision_model as t_decision
+from duet_tpu_torch.models import nn_snp_host as t_nn
+from duet_tpu_torch.models import snp_caller_host as t_snp
+from duet_tpu_torch.models import snp_phaser as t_phaser_dev
+from duet_tpu_torch.models import snp_phaser_host as t_phaser
+from duet_tpu_torch.models import sv_caller as t_sv_dev
+from duet_tpu_torch.models import sv_caller_host as t_sv
+from duet_tpu_torch.models import sv_phaser as t_svp
+from duet_tpu_torch.sim import SimConfig as TSimConfig
+from duet_tpu_torch.sim import simulate_dataset as t_simulate
+from duet_tpu_torch.utils import chrom as t_chrom
+from duet_tpu_torch.utils import devcost as t_devcost
+from duet_tpu_torch.utils import dispatch as t_dispatch
+
+CONTIG = "chr21"
+
+
+def _bytes(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _as(cls, obj):
+    """`obj` (a duet_tpu dataclass) as the port's class `cls`."""
+    return cls(**{f.name: getattr(obj, f.name)
+                  for f in dataclasses.fields(obj)})
+
+
+def _same_fields(a, b):
+    fa, fb = dataclasses.fields(a), dataclasses.fields(b)
+    assert [f.name for f in fa] == [f.name for f in fb]
+    for f in fa:
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, np.ndarray):
+            np.testing.assert_array_equal(x, y, err_msg=f.name)
+            assert x.dtype == y.dtype, f.name
+        else:
+            assert x == y, f.name
+
+
+@pytest.mark.parametrize("seed", [3, 8])
+def test_simulator_writes_duet_tpus_bytes(tmp_path, seed):
+    kw = dict(contigs={"chr1": 60_000, "chr2": 40_000}, seed=seed,
+              coverage=8.0, read_len_mean=6_000, tra_count=1,
+              inv_fraction=0.2, dup_fraction=0.2)
+    j_simulate(str(tmp_path / "jax"), JSimConfig(**kw))
+    t_simulate(str(tmp_path / "torch"), TSimConfig(**kw))
+    for name in ("reads.bam", "reads.bam.bai", "ref.fa", "ref.fa.fai",
+                 "truth.vcf"):
+        assert _bytes(tmp_path / "torch" / name) == \
+            _bytes(tmp_path / "jax" / name), name
+
+
+@pytest.mark.parametrize("reader", ["python", "native"])
+def test_read_store_equal(sim_dataset, reader):
+    from duet_tpu.io import native_ingest as j_native
+    from duet_tpu_torch.io import native_ingest as t_native
+
+    bam = os.path.join(sim_dataset[0], "reads.bam")
+    if reader == "python":
+        want, got = j_readstore.load_read_store(bam), \
+            t_readstore.load_read_store(bam)
+    else:
+        want, got = j_native.load_read_store_native(bam), \
+            t_native.load_read_store_native(bam)
+    assert got.contig_lengths == want.contig_lengths
+    assert list(got.contigs) == list(want.contigs)
+    for c in want.contigs:
+        _same_fields(got.contigs[c], want.contigs[c])
+
+
+@pytest.fixture(scope="module")
+def stage_objects(sim_dataset):
+    """duet_tpu's host stage objects on the shared dataset, and the port's
+    from its own store: SNPs, SV calls and breakends, phasing."""
+    from duet_tpu.io.fasta import FastaFile
+
+    data = sim_dataset[0]
+    bam = os.path.join(data, "reads.bam")
+    j_store = j_readstore.load_read_store(bam)
+    t_store = t_readstore.load_read_store(bam)
+    codes = {CONTIG: FastaFile(os.path.join(data, "ref.fa")).fetch_codes(
+        CONTIG)}
+    j_snps, _ = j_snp.call_snps_for_store(j_store, codes)
+    sv_cfg = j_sv.SvCallConfig()
+    j_calls, j_ev = j_sv.call_contig_with_evidence(j_store.contigs[CONTIG],
+                                                   sv_cfg)
+    t_calls, t_ev = t_sv_dev.call_contig_with_evidence(
+        t_store.contigs[CONTIG], t_sv.SvCallConfig())
+    j_phase = j_phaser.phase_contig(j_store.contigs[CONTIG], j_snps[CONTIG])
+    t_snps = _as(t_snp.ContigSnps, j_snps[CONTIG])
+    core = t_phaser_dev.phase_contig_core(t_store.contigs[CONTIG], t_snps)
+    t_phase = t_phaser_dev.score_contigs_batched({CONTIG: core}, False,
+                                                 0)[CONTIG]
+    return dict(j_store=j_store, t_store=t_store, j_snps=j_snps,
+                j_calls=j_calls, t_calls=t_calls,
+                j_bnds=j_sv.call_bnds({CONTIG: j_ev}, sv_cfg),
+                t_bnds=t_sv.call_bnds({CONTIG: t_ev}, t_sv.SvCallConfig()),
+                j_phase=j_phase, t_phase=t_phase)
+
+
+def test_stage_objects_equal(stage_objects):
+    o = stage_objects
+    assert len(o["t_calls"]) == len(o["j_calls"]) > 0
+    for a, b in zip(o["t_calls"], o["j_calls"]):
+        assert dataclasses.astuple(a) == dataclasses.astuple(b)
+    assert [dataclasses.astuple(b) for b in o["t_bnds"]] == \
+        [dataclasses.astuple(b) for b in o["j_bnds"]]
+    _same_fields(o["t_phase"], o["j_phase"])
+
+
+def test_pileup_vcf_writer(stage_objects, tmp_path):
+    o = stage_objects
+    lengths = o["j_store"].contig_lengths
+    j_snp.write_pileup_vcf(str(tmp_path / "j.vcf.gz"), o["j_snps"], lengths)
+    t_snp.write_pileup_vcf(str(tmp_path / "t.vcf.gz"),
+                           {c: _as(t_snp.ContigSnps, s)
+                            for c, s in o["j_snps"].items()}, lengths)
+    assert _bytes(tmp_path / "t.vcf.gz") == _bytes(tmp_path / "j.vcf.gz")
+    assert t_vcf.list_chroms(str(tmp_path / "j.vcf.gz")) == \
+        j_vcf.list_chroms(str(tmp_path / "j.vcf.gz"))
+
+
+@pytest.mark.parametrize("family", ["cutesv", "sniffles", "svim"])
+def test_sv_vcf_writer_and_parser(stage_objects, tmp_path, family):
+    o = stage_objects
+    lengths = o["j_store"].contig_lengths
+    want = str(tmp_path / "j.vcf")
+    got = str(tmp_path / "t.vcf")
+    j_sv.write_sv_vcf(want, {CONTIG: o["j_calls"]}, lengths, family=family,
+                      bnds=o["j_bnds"])
+    t_sv.write_sv_vcf(got, {CONTIG: [_as(t_sv.SvCall, c)
+                                     for c in o["j_calls"]]}, lengths,
+                      family=family,
+                      bnds=[_as(t_sv.BndCall, b) for b in o["j_bnds"]])
+    assert _bytes(got) == _bytes(want)
+    # the port's parser reads duet_tpu's file into the same records
+    for include_all in (False, True):
+        j_rec = j_vcf.parse_sv_vcf(want, include_all)
+        t_rec = t_vcf.parse_sv_vcf(want, include_all)
+        assert list(t_rec) == list(j_rec)
+        for c in j_rec:
+            assert [dataclasses.astuple(r) for r in t_rec[c]] == \
+                [dataclasses.astuple(r) for r in j_rec[c]]
+    assert t_vcf.read_vcf_lines(want) == j_vcf.read_vcf_lines(want)
+
+
+def test_phased_snp_vcf_writer(stage_objects, tmp_path):
+    o = stage_objects
+    snps = o["j_snps"][CONTIG]
+    j_phaser.write_phased_snp_vcf(str(tmp_path / "j.vcf.gz"), CONTIG, snps,
+                                  o["j_phase"])
+    t_phaser.write_phased_snp_vcf(str(tmp_path / "t.vcf.gz"), CONTIG,
+                                  _as(t_snp.ContigSnps, snps),
+                                  _as(t_phaser.PhaseResult, o["j_phase"]))
+    assert _bytes(tmp_path / "t.vcf.gz") == _bytes(tmp_path / "j.vcf.gz")
+    with gzip.open(tmp_path / "j.vcf.gz", "rt") as f:
+        assert any(not ln.startswith("#") for ln in f)
+
+
+def test_phased_sv_vcf_writer(stage_objects, tmp_path):
+    """variants.vcf -> parse -> phase -> phased_sv.vcf with each package's
+    own functions: the same bytes."""
+    o = stage_objects
+    lengths = o["j_store"].contig_lengths
+    variants = str(tmp_path / "variants.vcf")
+    j_sv.write_sv_vcf(variants, {CONTIG: o["j_calls"]}, lengths,
+                      bnds=o["j_bnds"])
+    read_hap = j_phaser.read_hap_map(o["j_store"].contigs[CONTIG],
+                                     o["j_phase"])
+    assert t_phaser.read_hap_map(o["t_store"].contigs[CONTIG],
+                                 o["t_phase"]) == read_hap
+    for pkg, vcf, svp in (("j", j_vcf, j_svp), ("t", t_vcf, t_svp)):
+        out = str(tmp_path / f"{pkg}_phased.vcf")
+        records = vcf.parse_sv_vcf(variants, False)
+        phased = svp.phase_callset(records, {CONTIG: read_hap}, 50, 2)
+        vcf.write_phased_sv_header(variants, out, False)
+        vcf.append_phased_sv_records(phased, out)
+    assert _bytes(tmp_path / "t_phased.vcf") == \
+        _bytes(tmp_path / "j_phased.vcf")
+
+
+CONSTANTS = [
+    (j_snp, t_snp, ("BASES", "DEVICE_PILEUP_WINDOW",
+                    "DEVICE_MAX_SITE_DENSITY", "AUTO_NN_MIN_COV",
+                    "AUTO_NN_MIN_ERR")),
+    (j_phaser, t_phaser, ("HAPLOTAG_B", "HAPLOTAG_BATCH",
+                          "REFINE_CORRECT_ROUNDS", "PC_PER_MARGIN", "PC_MAX",
+                          "ADAPTIVE_N1", "ADAPTIVE_REL", "ADAPTIVE_RHO")),
+    (j_sv, t_sv, ("SVTYPE_INS", "SVTYPE_DEL", "SVTYPE_INV", "SVTYPE_DUP",
+                  "TYPE_NAMES")),
+    (j_svp, t_svp, ("HP_STRINGS",)),
+    (j_nn, t_nn, ("N_FEATURES", "HIDDEN", "N_CLASSES", "HALF_WINDOW",
+                  "N_WINDOW")),
+    (j_dispatch, t_dispatch, ("STAGES",)),
+    (j_devcost, t_devcost, ("_FIELDS",)),
+    (j_pipeline.PipelineConfig, t_pipeline.PipelineConfig,
+     ("PHASING_GATE_FAST_NNZ", "SV_GATE_FAST_K")),
+]
+
+
+@pytest.mark.parametrize("j_mod,t_mod,names", CONSTANTS,
+                         ids=[c[1].__name__ for c in CONSTANTS])
+def test_module_constants_equal(j_mod, t_mod, names):
+    for name in names:
+        assert getattr(t_mod, name) == getattr(j_mod, name), name
+
+
+def test_haplotag_device_mode_is_the_ports_own():
+    """The one constant that differs on purpose: the port's default
+    scorer is its dense hand kernel (ROADMAP.md)."""
+    assert j_phaser.HAPLOTAG_DEVICE_MODE == "sparse"
+    assert t_phaser_dev.HAPLOTAG_DEVICE_MODE == "dense"
+
+
+@pytest.mark.parametrize("j_cls,t_cls", [
+    (j_snp.SnpCallConfig, t_snp.SnpCallConfig),
+    (j_sv.SvCallConfig, t_sv.SvCallConfig),
+    (j_pipeline.PipelineConfig, t_pipeline.PipelineConfig),
+], ids=["SnpCallConfig", "SvCallConfig", "PipelineConfig"])
+def test_config_fields_and_defaults_equal(j_cls, t_cls):
+    def spec(cls):
+        return [(f.name, f.default, f.default_factory)
+                for f in dataclasses.fields(cls) if f.name != "device"
+                or cls is not t_pipeline.PipelineConfig]
+    assert spec(t_cls) == spec(j_cls)
+
+
+def test_pipeline_config_methods_agree():
+    paths = dict(bam="x.bam", reference="x.fa", output="out")
+    for stages in ("auto", "on", "off"):
+        j = j_pipeline.PipelineConfig(device_stages=stages, **paths)
+        t = t_pipeline.PipelineConfig(device_stages=stages, device="cpu",
+                                      **paths)
+        assert dataclasses.asdict(t.snp_cfg()) == \
+            dataclasses.asdict(j.snp_cfg())
+        assert dataclasses.asdict(t.sv_cfg()) == \
+            dataclasses.asdict(j.sv_cfg())
+        assert t.phasing_device_min_nnz() == j.phasing_device_min_nnz()
+
+
+def test_cli_flags_equal():
+    def flags(parser):
+        return [(a.dest, tuple(a.option_strings), a.default,
+                 tuple(a.choices or ()), a.help)
+                for a in parser._actions if a.dest != "help"]
+    got = flags(t_cli.build_parser())
+    want = flags(j_cli.build_parser())
+    assert got[:-1] == want
+    assert got[-1][:2] == ("device", ("--device",))
+
+
+def test_shipped_weights_equal():
+    want, got = j_nn.load_params(), t_nn.load_params()
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+    assert t_decision.load_model() == j_decision.load_model()
+
+
+@pytest.mark.parametrize("name", ["chr7", "7", "chrUn_x", "X"])
+def test_chrom_naming_equal(name):
+    assert t_chrom.strip_chr(name) == j_chrom.strip_chr(name)
+    for include in (False, True):
+        assert t_chrom.resolve_contig_names([name, "chr1"], include) == \
+            j_chrom.resolve_contig_names([name, "chr1"], include)

@@ -1,0 +1,82 @@
+"""The torch port stands alone: no module of ``duet_tpu_torch`` nor
+``chip_smoke.py`` imports the JAX package ``duet_tpu``, and a fresh
+interpreter that refuses duet_tpu and JAX simulates a dataset, runs the CLI
+end to end under --device-stages on and off, and imports the bench and the
+smoke script."""
+
+import ast
+import glob
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_FILES = sorted(
+    os.path.relpath(p, REPO)
+    for p in glob.glob(os.path.join(REPO, "duet_tpu_torch", "**", "*.py"),
+                       recursive=True)) + ["chip_smoke.py"]
+
+
+def _imported_modules(tree: ast.AST):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_no_import_of_duet_tpu(path):
+    with open(os.path.join(REPO, path)) as f:
+        tree = ast.parse(f.read(), path)
+    bad = [(line, mod) for line, mod in _imported_modules(tree)
+           if mod == "duet_tpu" or mod.startswith("duet_tpu.")]
+    assert not bad, f"{path} imports the JAX package: {bad}"
+
+
+@pytest.mark.parametrize("mode", ["on", "off"])
+def test_cli_runs_with_duet_tpu_refused(tmp_path, mode):
+    """The import system refuses duet_tpu, jax, jaxlib, ml_dtypes and
+    optax; the port's simulator, CLI, bench and chip_smoke.py still work."""
+    data = str(tmp_path / "data")
+    out = str(tmp_path / "out")
+    script = textwrap.dedent(f"""
+        import importlib.abc, runpy, sys
+        BLOCKED = ("duet_tpu", "jax", "jaxlib", "ml_dtypes", "optax")
+
+        class Refuse(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError("refused import of " + name)
+                return None
+
+        sys.meta_path.insert(0, Refuse())
+        from duet_tpu_torch.sim import SimConfig, simulate_dataset
+        simulate_dataset({data!r}, SimConfig(contigs={{"chr1": 50_000}},
+                                             seed=6, coverage=10.0))
+        import chip_smoke
+        import duet_tpu_torch.bench
+        sys.argv = ["duet_tpu_torch", {data!r} + "/reads.bam",
+                    {data!r} + "/ref.fa", {out!r}, "--device", "cpu",
+                    "--device-stages", {mode!r}, "-t", "2"]
+        try:
+            runpy.run_module("duet_tpu_torch", run_name="__main__",
+                             alter_sys=True)
+        except SystemExit as e:
+            assert e.code == 0, e.code
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in BLOCKED)
+        assert not loaded, loaded
+        print("STANDALONE_RUN_OK")
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "STANDALONE_RUN_OK" in proc.stdout
+    with open(os.path.join(out, "phased_sv.vcf")) as f:
+        assert f.readline().startswith("##fileformat=VCF")

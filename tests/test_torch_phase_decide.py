@@ -9,7 +9,7 @@ import torch
 from duet_tpu.io.vcf import SVRecord
 from duet_tpu.models import sv_phaser as svp
 from duet_tpu.ops.phase_decide import phase_decide_packed as jax_decide
-from duet_tpu.utils import dispatch
+from duet_tpu_torch.utils import dispatch
 from duet_tpu_torch.models import sv_phaser as tsvp
 from duet_tpu_torch.ops.phase_decide import phase_decide_packed
 from reference_oracle import oracle_phase_chromosome

@@ -10,7 +10,7 @@ import torch
 from duet_tpu.models import snp_caller as jsc
 from duet_tpu.models.snp_caller import SnpCallConfig, call_snps, count_alleles
 from duet_tpu.ops import pileup as jp
-from duet_tpu.utils import dispatch
+from duet_tpu_torch.utils import dispatch
 from duet_tpu_torch.models import snp_caller as tsc
 from duet_tpu_torch.ops import pileup as tp
 from test_pileup_kernel import random_observations, reads_from_observations

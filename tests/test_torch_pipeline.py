@@ -68,9 +68,9 @@ def test_artifacts_match_jax_pipeline(sim_dataset, tmp_path, mode, backend):
 
 def test_cli_run_imports_no_jax(tmp_path):
     """`python -m duet_tpu_torch ... --device cpu --device-stages on` in a
-    fresh interpreter whose import system refuses jax, jaxlib, ml_dtypes
-    and optax: the whole device-stage pipeline runs, and the bench module
-    imports."""
+    fresh interpreter whose import system refuses jax, jaxlib, ml_dtypes,
+    optax and the JAX package duet_tpu: the whole device-stage pipeline
+    runs, and the bench module imports."""
     from duet_tpu.sim import SimConfig, simulate_dataset
 
     data = str(tmp_path / "data")
@@ -79,7 +79,7 @@ def test_cli_run_imports_no_jax(tmp_path):
                                      coverage=10.0))
     script = textwrap.dedent(f"""
         import importlib.abc, runpy, sys
-        BLOCKED = ("jax", "jaxlib", "ml_dtypes", "optax")
+        BLOCKED = ("jax", "jaxlib", "ml_dtypes", "optax", "duet_tpu")
 
         class Refuse(importlib.abc.MetaPathFinder):
             def find_spec(self, name, path, target=None):

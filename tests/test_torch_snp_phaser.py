@@ -9,7 +9,7 @@ import torch
 
 from duet_tpu.models import snp_phaser as sp
 from duet_tpu.ops.sparse_power import power_refine_device as jax_refine
-from duet_tpu.utils import dispatch
+from duet_tpu_torch.utils import dispatch
 from duet_tpu_torch.models import snp_phaser as tsp
 from duet_tpu_torch.ops import haplotag_kernel
 from duet_tpu_torch.ops.sparse_power import power_refine_device

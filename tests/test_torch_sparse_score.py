@@ -14,10 +14,11 @@ from duet_tpu.models import snp_phaser as sp
 from duet_tpu.ops import sparse_power as jax_sparse
 from duet_tpu.pipeline import PipelineConfig as JaxConfig
 from duet_tpu.pipeline import run_pipeline as jax_run
-from duet_tpu.utils import dispatch
+from duet_tpu.utils import dispatch as jax_dispatch
 from duet_tpu_torch.models import snp_phaser as tsp
 from duet_tpu_torch.ops import sparse_power
 from duet_tpu_torch.pipeline import PipelineConfig, run_pipeline
+from duet_tpu_torch.utils import dispatch
 from test_snp_phaser import diploid_matrix, matrix_from_dense
 from test_torch_pipeline import _artifacts, _read
 
@@ -162,10 +163,12 @@ def test_score_contigs_batched_matches_jax(monkeypatch, mode, use_device):
                                           err_msg=f"{c} {key}")
 
 
-def _haplotag_on_device(fn) -> bool:
-    dispatch.reset()
+def _haplotag_on_device(fn, registry) -> bool:
+    """Whether `fn` scored on the device, read from the dispatch registry
+    of the package that ran it."""
+    registry.reset()
     fn()
-    return dispatch.snapshot().get("haplotag", {}).get("device", 0) > 0
+    return registry.snapshot().get("haplotag", {}).get("device", 0) > 0
 
 
 @pytest.mark.parametrize("mode", ["dense", "sparse"])
@@ -180,9 +183,10 @@ def test_device_gate_reads_the_combined_nnz(monkeypatch, mode):
     for gate, on_device in [(max(nnz) + 1, True), (sum(nnz), True),
                             (sum(nnz) + 1, False)]:
         jax_dev = _haplotag_on_device(
-            lambda: sp.score_contigs_batched(cores, True, gate))
+            lambda: sp.score_contigs_batched(cores, True, gate), jax_dispatch)
         port_dev = _haplotag_on_device(
-            lambda: tsp.score_contigs_batched(cores, True, gate, CPU))
+            lambda: tsp.score_contigs_batched(cores, True, gate, CPU),
+            dispatch)
         assert jax_dev == port_dev == on_device, gate
 
 
