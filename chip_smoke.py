@@ -15,7 +15,8 @@ together).  Phases, each printing one line:
                 and rows in 1, 100, 1000, with all-zero rows, tied blocks
                 and negative signed sums;
   [sweep]       the power-iteration sweep kernel against its plain version
-                at the bench shape and on edge shapes;
+                at the bench shape and on SWEEP_EDGE_SHAPES (both arms,
+                every tile boundary), with sweep_launch_shape for each;
   [fused]       phase_and_tag_fused on the kernels against the plain
                 phase_and_tag (bench shape, sweeps 0/2/3, B=200), and the
                 shared-rhs score launch alone;
@@ -209,6 +210,57 @@ def sweep_edge_inputs(seed: int):
     return A, W, phase0, onehot
 
 
+# The sweep kernel's one-pass arm: the most rows a tile, and the longest
+# row it holds on an H100 (232,448 bytes of shared memory a block: a ring
+# of two 1-row tiles, 6 S, the phase and vote partials, 6 S, and 544
+# bytes); longer rows take the rereading arm (csrc/haplotag_sweep.cu)
+SWEEP_ROWS = 8
+SWEEP_ROW_LIMIT = 19_312
+
+# (R, S, kind) of the sweep's edge shapes: R at 1, a tile's rows - 1 and
+# + 1, and 1000; S at 1, 15 (off the 16-byte copies), 777, 4096 (the
+# bench's) and 3 past the one-CTA row limit (the rereading arm); then the
+# limit itself (1-row tiles), 4352 (4-row tiles), a window whose every row
+# sum is 0, and R = 400,000 x S = 64, the plain version's exactness edge.
+# "mixed": density 0.2 with every 5th row (from row 2) all zero and every
+# 9th site (from site 4) unphased; "cancel": every row sum 0, so h = 0 and
+# the votes are all 0; "deep": every site covered, votes near 2^24.
+SWEEP_EDGE_SHAPES = [(R, S, "mixed") for R in (1, SWEEP_ROWS - 1,
+                                               SWEEP_ROWS + 1, 1000)
+                     for S in (1, 15, 777, 4096, SWEEP_ROW_LIMIT + 3)] + [
+    (SWEEP_ROWS + 1, SWEEP_ROW_LIMIT, "mixed"), (1000, 4352, "mixed"),
+    (300, 512, "cancel"), (400_000, 64, "deep")]
+
+
+def sweep_edge_batch(R: int, S: int, kind: str):
+    """(alleles int8, weights float32, phase float32) of one edge shape,
+    from a seed made of the shape; weights are integers <= 40."""
+    rng = np.random.default_rng([R, S, len(kind)])
+    phase = rng.choice(np.array([-1.0, 1.0], np.float32), S)
+    if kind == "deep":
+        A = np.where(rng.random((R, S)) < 0.97, 1, -1).astype(np.int8)
+        W = rng.integers(36, 41, (R, S)).astype(np.float32)
+        return A, W, np.ones(S, np.float32)
+    if kind == "cancel":
+        # sites in pairs (2k, 2k+1) with one weight, alleles chosen so the
+        # pair's aw * phase sum to 0; every row sum is then 0
+        cov = rng.random((R, S // 2)) < 0.3
+        a0 = np.where(cov, rng.choice([-1, 1], (R, S // 2)), 0)
+        w = np.where(cov, rng.integers(1, 41, (R, S // 2)), 0)
+        A = np.zeros((R, S), np.int8)
+        W = np.zeros((R, S), np.float32)
+        A[:, 0::2], A[:, 1::2] = a0, -a0 * phase[0::2] * phase[1::2]
+        W[:, 0::2] = W[:, 1::2] = w
+        return A, W, phase
+    cov = rng.random((R, S)) < 0.2
+    A = np.where(cov, rng.choice([-1, 1], (R, S)), 0).astype(np.int8)
+    W = np.where(cov, rng.integers(1, 41, (R, S)), 0).astype(np.float32)
+    A[2::5] = 0
+    W[2::5] = 0
+    phase[4::9] = 0
+    return A, W, phase
+
+
 def _cuda(A, W, phase0, onehot):
     """Card tensors: alleles int8, weights float32 and bf16, phase, onehot."""
     import torch
@@ -237,24 +289,34 @@ def _require_launches(counts: dict, names, path: str) -> None:
         raise AssertionError(f"{path} never launched {missing}: {counts}")
 
 
+def _kernel_name(mangled: str) -> str:
+    """A kernel instantiation named by its template arguments."""
+    import re
+
+    v = re.search(r"(FusedAw|GivenAw)E(?:Li(\d+)ELi(\d+)E)?", mangled)
+    if v:
+        return f"score<{v.group(1)}>" if not v.group(2) else \
+            f"score<{v.group(1)}, {v.group(2)} warps, {v.group(3)} stages>"
+    v = re.search(r"sweep_one_passILi(\d+)ELi(\d+)ELi(\d+)E", mangled)
+    if v:
+        return f"sweep one-pass<{v.group(1)} threads, {v.group(2)} rows, " \
+               f"{v.group(3)} stages>"
+    return "sweep reread" if "sweep_reread" in mangled else mangled
+
+
 def ptxas_info(log: str) -> list[str]:
     """One line per kernel instantiation from nvcc's -Xptxas -v output:
-    its name (score kernels: lhs variant, warps, stages), registers,
-    spills, stack and static shared memory.  The score kernel's ring is
-    dynamic shared memory, printed per launch by the phases."""
+    its name (score kernels: lhs variant, warps, stages; the sweep's
+    one-pass arm: threads, rows, stages), registers, spills, stack and
+    static shared memory.  The rings are dynamic shared memory, printed
+    per launch by the phases."""
     import re
 
     out, name, spill = [], None, ""
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            mangled = m.group(1)
-            v = re.search(r"(FusedAw|GivenAw)E(?:Li(\d+)ELi(\d+)E)?",
-                          mangled)
-            name = ("sweep" if "sweep" in mangled else mangled) if not v \
-                else f"score<{v.group(1)}>" if not v.group(2) \
-                else f"score<{v.group(1)}, {v.group(2)} warps, " \
-                     f"{v.group(3)} stages>"
+            name = _kernel_name(m.group(1))
         elif "spill" in ln:
             spill = ln.strip()
         elif "Used" in ln and "registers" in ln and name:
@@ -386,42 +448,76 @@ def phase_score_edges(report: dict) -> None:
           flush=True)
 
 
+def _sweep_note(shape: dict) -> str:
+    return (f"{shape['arm']}, {shape['rows']} rows x {shape['stages']} "
+            f"stages, {shape['ctas']} CTAs ({shape['ctas_per_sm']}/SM), "
+            f"cluster {shape['cluster']}, {shape['smem_bytes']} B dynamic "
+            f"smem, {shape['copy']} copies")
+
+
 def phase_sweep(report: dict) -> None:
+    """The sweep kernel against its plain version at the bench shape and on
+    SWEEP_EDGE_SHAPES, with the launch shape of each."""
     import torch
 
+    from duet_tpu_torch.bench import KERNEL_SHAPE
     from duet_tpu_torch.ops.haplotag import _aw, power_sweep_votes
-    from duet_tpu_torch.ops.haplotag_kernel import power_sweep
+    from duet_tpu_torch.ops.haplotag_kernel import (power_sweep,
+                                                    sweep_launch_shape)
 
-    parts = []
-    cases = [("bench", bench_inputs())] + \
-        [(f"edge seed {s}", sweep_edge_inputs(s)) for s in (1, 2)]
-    for label, batch in cases:
-        a, _, w16, p, _ = _cuda(*batch)
-        p16 = p.to(torch.bfloat16)
+    # the arm the bench and quick shapes take reads the window once
+    for label in ("full", "quick"):
+        R, S, _ = KERNEL_SHAPE[label]
+        shape = sweep_launch_shape(R, S)
+        if shape["arm"] != "one_pass" or shape["rows"] != SWEEP_ROWS or \
+                shape["copy"] == "element":
+            raise AssertionError(f"sweep at the {label} shape: {shape}")
+    for S, arm in ((SWEEP_ROW_LIMIT, "one_pass"),
+                   (SWEEP_ROW_LIMIT + 1, "reread")):
+        if sweep_launch_shape(1, S)["arm"] != arm:
+            raise AssertionError(f"sweep at S={S} is not {arm}: the "
+                                 f"one-CTA row limit moved")
+
+    a, _, w16, p, _ = _cuda(*bench_inputs())
+    p16 = p.to(torch.bfloat16)
+    got = power_sweep(a, w16, p16)
+    want = power_sweep_votes(a, w16, p16)
+    _require_equal([got], [want], ["votes"], "sweep, bench")
+    ms, plain_ms = _turns(lambda: power_sweep(a, w16, p16),
+                          lambda: power_sweep_votes(a, w16, p16))
+    aw32, p32 = _aw(a, w16), p16.float()
+    library_ms = _median_ms(lambda: aw32.T @ torch.sign(aw32 @ p32))
+    del aw32
+    R, S = a.shape
+    bench = f"R={R} S={S} ({_sweep_note(sweep_launch_shape(R, S))})"
+    # alleles + weights once, the phase in and the votes out; two
+    # multiply-adds an element (h, then the votes) on CUDA cores
+    report["sweep"] = {"ms": ms, "plain_ms": plain_ms,
+                       "library_ms": library_ms,
+                       "max_abs_err": float((got - want).abs().max()),
+                       **_bound(R * S * 3 + S * 2 + S * 4, 4.0 * R * S,
+                                "fp32")}
+    edges = []
+    for R, S, kind in SWEEP_EDGE_SHAPES:
+        A, W, phase = sweep_edge_batch(R, S, kind)
+        a = torch.from_numpy(A).cuda()
+        w16 = torch.from_numpy(W).to(torch.bfloat16).cuda()
+        p16 = torch.from_numpy(phase).to(torch.bfloat16).cuda()
         got = power_sweep(a, w16, p16)
-        want = power_sweep_votes(a, w16, p16)
-        _require_equal([got], [want], ["votes"], f"sweep, {label}")
-        if label != "bench":
-            continue
-        ms, plain_ms = _turns(lambda: power_sweep(a, w16, p16),
-                              lambda: power_sweep_votes(a, w16, p16))
-        aw32, p32 = _aw(a, w16), p16.float()
-        library_ms = _median_ms(lambda: aw32.T @ torch.sign(aw32 @ p32))
-        R, S = a.shape
-        # alleles + weights once, the phase in and the votes out; two
-        # multiply-adds an element (h, then the votes) on CUDA cores
-        report["sweep"] = {"ms": ms, "plain_ms": plain_ms,
-                           "library_ms": library_ms,
-                           "max_abs_err": float((got - want).abs().max()),
-                           **_bound(R * S * 3 + S * 2 + S * 4, 4.0 * R * S,
-                                    "fp32")}
-        parts.append(f"{label} R={R} S={S}: {ms:.4f} ms vs plain "
-                     f"{plain_ms:.4f} ms vs library (two float32 gemvs) "
-                     f"{library_ms:.4f} ms, bound "
-                     f"{report['sweep']['bound_ms']:.4f} ms")
+        _require_equal([got], [power_sweep_votes(a, w16, p16)], ["votes"],
+                       f"sweep, {R} x {S} {kind}")
+        if kind == "cancel" and bool(got.any()):
+            raise AssertionError("sweep: votes of a window of zero row sums")
+        edges.append(f"{R}x{S} {kind} ({_sweep_note(sweep_launch_shape(R, S))}"
+                     f"; |votes| up to {int(got.abs().max())})")
+    sw = report["sweep"]
     print(f"[sweep] haplotag_sweep == power_sweep_votes (torch.equal on "
-          f"float32 votes, also on 2 edge shapes with 70 all-zero rows and "
-          f"zero-phase sites); median {'; '.join(parts)}", flush=True)
+          f"float32 votes) at the bench shape {bench}: median {ms:.4f} ms "
+          f"vs plain {plain_ms:.4f} ms vs library (two float32 gemvs on a "
+          f"prebuilt aw) {library_ms:.4f} ms, bound {sw['bound_ms']:.4f} ms "
+          f"({sw['bound_by']}) on {report['card']}; and on "
+          f"{len(SWEEP_EDGE_SHAPES)} edge shapes: {'; '.join(edges)}",
+          flush=True)
 
 
 def phase_fused(report: dict) -> None:

@@ -46,9 +46,11 @@ def nvcc() -> str:
     return found
 
 
-def load(name: str, sources: list[str]) -> ctypes.CDLL:
+def load(name: str, sources: list[str],
+         defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     """The ctypes library `name` built from `sources` (file names under
-    csrc/), building it first if this source hash has no library yet."""
+    csrc/) with the macros `defines` ("NAME=VALUE", passed as -D), building
+    it first if this source hash has no library yet."""
     with _lock:
         name_lock = _name_locks.setdefault(name, threading.Lock())
     with name_lock:
@@ -56,25 +58,29 @@ def load(name: str, sources: list[str]) -> ctypes.CDLL:
         if lib is not None:
             return lib
         paths = [os.path.join(CSRC_DIR, s) for s in sources]
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+        h = hashlib.sha256(" ".join(flags).encode())
         for p in paths:
             with open(p, "rb") as f:
                 h.update(f.read())
         out_dir = os.path.join(BUILD_ROOT, f"{name}-{h.hexdigest()[:16]}")
         so = os.path.join(out_dir, f"lib{name}.so")
         t0 = time.perf_counter()
+        log_path = os.path.join(out_dir, "build.log")
         built = not os.path.exists(so)
-        log = ""
-        if built:
+        if not built:
+            with open(log_path) as f:
+                log = f.read()
+        else:
             os.makedirs(out_dir, exist_ok=True)
             tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *paths]
+            cmd = [nvcc(), *flags, "-o", tmp, *paths]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             log = proc.stdout + proc.stderr
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {name} "
                                    f"(exit {proc.returncode}):\n{log}")
-            with open(os.path.join(out_dir, "build.log"), "w") as f:
+            with open(log_path, "w") as f:
                 f.write(log)
             os.replace(tmp, so)  # atomic: a reader never sees a torn library
         lib = ctypes.CDLL(so)

@@ -85,17 +85,53 @@ def score_launch_shape(n_tasks: int, rows_per_task: int, K: int,
             "smem_bytes": smem.value}
 
 
+def sweep_library_name(defines: tuple[str, ...] = ()) -> str:
+    """The build name of the sweep library, or of a variant of it."""
+    return "_".join(["haplotag_sweep", *(d.replace("=", "")
+                                         for d in defines)])
+
+
 @functools.cache
-def _sweep_library() -> ctypes.CDLL:
+def _sweep_library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The sweep kernel's library; `defines` build a variant of its
+    one-pass launch shape (see the source note), under its own name."""
     from duet_tpu_torch.ops.cuda_build import load
 
-    lib = load("haplotag_sweep", ["haplotag_sweep.cu"])
+    lib = load(sweep_library_name(defines), ["haplotag_sweep.cu"], defines)
     lib.duet_haplotag_sweep.argtypes = [ctypes.c_void_p] * 4 + \
         [ctypes.c_int] * 2 + [ctypes.c_void_p]
     lib.duet_haplotag_sweep.restype = ctypes.c_int
+    lib.duet_haplotag_sweep_shape.argtypes = [ctypes.c_int] * 2 + \
+        [ctypes.POINTER(ctypes.c_int)]
+    lib.duet_haplotag_sweep_shape.restype = ctypes.c_int
     lib.duet_sweep_error_string.argtypes = [ctypes.c_int]
     lib.duet_sweep_error_string.restype = ctypes.c_char_p
     return lib
+
+
+SWEEP_SHAPE_KEYS = ("arm", "rows", "stages", "ctas", "ctas_per_sm",
+                    "cluster", "smem_bytes", "copy")
+SWEEP_ARMS = ("one_pass", "reread")
+SWEEP_COPIES = ("element", "cp.async")
+
+
+def sweep_launch_shape(R: int, S: int,
+                       defines: tuple[str, ...] = ()) -> dict:
+    """The shape the sweep kernel launches with for an (R, S) window of
+    16-byte aligned inputs on the current CUDA device (for reports; the
+    launch decides with the same code): the arm ("one_pass" reads the
+    window from HBM once, "reread" reads each row twice), rows a tile, ring
+    stages, CTAs in the grid and resident per SM, cluster size, dynamic
+    shared memory in bytes, and how a tile is staged: "cp.async" (16-byte
+    copies) or "element"."""
+    lib = _sweep_library(defines)
+    out = (ctypes.c_int * len(SWEEP_SHAPE_KEYS))()
+    rc = lib.duet_haplotag_sweep_shape(R, S, out)
+    _raise_on(rc, "haplotag_sweep_shape", lib.duet_sweep_error_string)
+    shape = dict(zip(SWEEP_SHAPE_KEYS, out))
+    shape["arm"] = SWEEP_ARMS[shape["arm"]]
+    shape["copy"] = SWEEP_COPIES[shape["copy"]]
+    return shape
 
 
 def build() -> None:
@@ -205,9 +241,10 @@ def power_sweep(alleles: torch.Tensor, weights16: torch.Tensor,
                 phase: torch.Tensor) -> torch.Tensor:
     """One power-iteration sweep: the ``_sweep_kernel`` launch.
 
-    alleles (R, S) int8; weights16 (R, S) bfloat16 holding integer quality
-    weights; phase (S,) bfloat16 +1/-1/0.  Returns the (S,) float32 votes
-    ``aw.T @ sign(aw @ phase)``."""
+    alleles (R, S) int8 in {-1, 0, +1}; weights16 (R, S) bfloat16 holding
+    integer quality weights <= 40; phase (S,) bfloat16 +1/-1/0.  Returns
+    the (S,) float32 votes ``aw.T @ sign(aw @ phase)``, exact while 40 * S
+    and 40 * R are below 2^24."""
     dev = _device_of(alleles, weights16, phase)
     if alleles.dtype != torch.int8 or alleles.dim() != 2:
         raise TypeError("alleles must be a 2-D int8 tensor")
@@ -218,7 +255,18 @@ def power_sweep(alleles: torch.Tensor, weights16: torch.Tensor,
         raise TypeError(f"phase must be a ({S},) bfloat16 tensor")
     if dev.type == "cpu":
         return power_sweep_votes(alleles, weights16, phase)
-    lib = _sweep_library()
+    votes = sweep_launch(_sweep_library(), alleles, weights16, phase)
+    _count("haplotag_sweep")
+    return votes.float()
+
+
+def sweep_launch(lib: ctypes.CDLL, alleles: torch.Tensor,
+                 weights16: torch.Tensor,
+                 phase: torch.Tensor) -> torch.Tensor:
+    """Launch the sweep kernel of `lib` (the library or a build variant of
+    it) on checked CUDA tensors; the (S,) int32 votes.  Not counted."""
+    dev = alleles.device
+    R, S = alleles.shape
     votes = torch.empty(S, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -226,8 +274,7 @@ def power_sweep(alleles: torch.Tensor, weights16: torch.Tensor,
                                      phase.data_ptr(), votes.data_ptr(), R, S,
                                      stream)
     _raise_on(rc, "haplotag_sweep", lib.duet_sweep_error_string)
-    _count("haplotag_sweep")
-    return votes.float()
+    return votes
 
 
 def _rhs(phase: torch.Tensor, block_onehot: torch.Tensor) -> torch.Tensor:

@@ -116,6 +116,47 @@ def test_sweep_kernel_matches_plain(cuda_device, seed, B):
     assert got.dtype == torch.float32 and torch.equal(got, want)
 
 
+@pytest.mark.parametrize("R,S,kind", chip_smoke.SWEEP_EDGE_SHAPES)
+def test_sweep_kernel_on_edge_shapes(cuda_device, R, S, kind):
+    """Both arms of the sweep kernel against the plain version, exactly: R
+    off a tile's rows, S off the 16-byte copies and past the one-CTA row
+    limit, all-zero rows, zero-phase sites, a window of zero row sums and
+    votes near 2^24."""
+    A, W, phase = chip_smoke.sweep_edge_batch(R, S, kind)
+    a = torch.from_numpy(A).to(cuda_device)
+    w16 = torch.from_numpy(W).to(torch.bfloat16).to(cuda_device)
+    p16 = torch.from_numpy(phase).to(torch.bfloat16).to(cuda_device)
+    before = haplotag_kernel.LAUNCHES["haplotag_sweep"]
+    got = haplotag_kernel.power_sweep(a, w16, p16)
+    want = power_sweep_votes(a, w16, p16)
+    torch.cuda.synchronize()
+    assert haplotag_kernel.LAUNCHES["haplotag_sweep"] == before + 1
+    assert torch.equal(got, want)
+    if kind == "cancel":
+        assert not got.any()
+    arm = "one_pass" if S <= chip_smoke.SWEEP_ROW_LIMIT else "reread"
+    assert haplotag_kernel.sweep_launch_shape(R, S)["arm"] == arm
+
+
+def test_sweep_launch_shape(cuda_device):
+    """The bench and quick windows take the one-pass arm with 8-row tiles,
+    16-byte copies and a grid no larger than its tiles; the row limit
+    splits the arms."""
+    from duet_tpu_torch.bench import KERNEL_SHAPE
+
+    for R, S, _ in KERNEL_SHAPE.values():
+        shape = haplotag_kernel.sweep_launch_shape(R, S)
+        assert shape["arm"] == "one_pass" and shape["rows"] == 8, shape
+        assert shape["copy"] == "cp.async" and shape["cluster"] == 1, shape
+        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+        assert shape["ctas"] == min(R // 8, shape["ctas_per_sm"] * n_sm)
+    assert haplotag_kernel.sweep_launch_shape(1, 15)["copy"] == "element"
+    limit = chip_smoke.SWEEP_ROW_LIMIT
+    assert haplotag_kernel.sweep_launch_shape(1, limit)["rows"] == 1
+    assert haplotag_kernel.sweep_launch_shape(1, limit + 1)["arm"] == \
+        "reread"
+
+
 @pytest.mark.parametrize("B,sweeps", [(5, 2), (40, 0), (40, 3), (200, 2)])
 def test_fused_matches_plain(cuda_device, B, sweeps):
     a, w, w16, p, oh = _small_batch(7, B)

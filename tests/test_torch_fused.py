@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import __graft_entry__ as g
+import chip_smoke
 from duet_tpu.ops.pallas_haplotag import (
     haplotag_score_pallas,
 )
@@ -130,6 +131,31 @@ def test_power_sweep_votes_match_numpy_and_jax(seed):
     assert haplotag_kernel.power_sweep(a, w16, ph.to(torch.bfloat16)) \
         .equal(votes)
     # the phase after one sweep, by the JAX kernel's update rule
+    new = np.where(want > 0, 1, np.where(want < 0, -1, phase0))
+    new = np.where(phase0 != 0, new, 0).astype(np.int8)
+    jax_phase = _jax_fused(alleles, weights, phase0, onehot, 1)["phase"]
+    np.testing.assert_array_equal(np.asarray(jax_phase), new)
+
+
+@pytest.mark.parametrize("R,S,kind", [
+    shape for shape in chip_smoke.SWEEP_EDGE_SHAPES
+    if shape[0] * shape[1] <= 10**6])
+def test_sweep_edge_shapes_match_numpy_and_jax(R, S, kind):
+    """chip_smoke.py's sweep edge shapes that fit the CPU: the plain sweep
+    (what a CPU tensor runs, and what the kernel is pinned to on the card)
+    equals numpy, and its one-sweep phase equals the JAX kernel's."""
+    alleles, weights, phase0 = chip_smoke.sweep_edge_batch(R, S, kind)
+    aw = alleles.astype(np.float32) * weights
+    want = aw.T @ np.sign(aw @ phase0)
+    a = torch.from_numpy(alleles)
+    w16 = torch.from_numpy(weights).to(torch.bfloat16)
+    ph16 = torch.from_numpy(phase0).to(torch.bfloat16)
+    votes = haplotag_kernel.power_sweep(a, w16, ph16)
+    np.testing.assert_array_equal(votes.numpy(), want)
+    assert votes.equal(power_sweep_votes(a, w16, ph16))
+    if kind == "cancel":
+        assert not want.any()
+    onehot = np.ones((S, 1), np.float32)
     new = np.where(want > 0, 1, np.where(want < 0, -1, phase0))
     new = np.where(phase0 != 0, new, 0).astype(np.int8)
     jax_phase = _jax_fused(alleles, weights, phase0, onehot, 1)["phase"]
