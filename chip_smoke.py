@@ -24,11 +24,25 @@ together).  Phases, each printing one line:
                 it, then against its plain version;
   [nn]          the neural SNP caller's forward pass on the card vs the CPU;
   [sim]         a simulated dataset (2 contigs x 5 Mb, 20x, fixed seed);
+  [ingest]      the port's native ingest library (csrc/duet_ingest.cc,
+                zlib inflate) built and loaded, the zlib it links, and the
+                smoke BAM decoded by it (decode stats) and equal to the
+                Python reader's store;
   [pipeline on] the batch pipeline through the port's CLI with
-                --device-stages on (dense scorer), every stage on the device;
+                --device-stages on (dense scorer), every stage on the device
+                and the ingest native;
   [pipeline off]  the same CLI with --device-stages off: byte-identical;
   [pipeline sparse]  --device-stages on with the sparse COO scorer:
                 byte-identical to both;
+  [stream]      --stream --device-stages on (contig-major, each contig's
+                reads scored by the batched kernel on its own): native
+                ingest, byte-identical to the batch run;
+  [resume]      --resume on a copy of the batch run's calling stages:
+                byte-identical, the phasing rerun on the kernel;
+  [phase-only]  --phase-only from the batch run's SV calls and haplotag
+                tables: the same phased_sv.vcf;
+  [flags]       --snp-model nn --haplotag-bam under on and under off: every
+                artifact byte-identical, the haplotagged BAMs included;
   [bench]       `python -m duet_tpu_torch.bench`'s full run in process.
 
 Every comparison of a kernel with its plain version is exact (torch.equal).
@@ -37,11 +51,11 @@ kernel, kernel, plain); beside each kernel stand its bound (the larger of
 its bytes over the card's memory rate and its operations over the peak
 rate for their type) and one PyTorch library call on the same inputs (a
 float32 cuBLAS product; the port never calls it).
-Each path (the pipeline on, haplotag_score, the bench) runs with the launch
-counts set to 0 just before it and read just after, and fails if a kernel
-of that path never launched.  Any failure exits non-zero.  The
-second-to-last line is one JSON object describing the kernels; the last is
-{"ok": true, "device": {...}}.
+Each path (the pipeline on, the stream, the resume, haplotag_score, the
+bench) runs with the launch counts set to 0 just before it and read just
+after, and fails if a kernel of that path never launched.  Any failure
+exits non-zero.  The second-to-last line is one JSON object describing the
+kernels; the last is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -654,34 +668,89 @@ def phase_simulate(report: dict, work: str) -> str:
     return data
 
 
-def _run_cli(data: str, out: str, mode: str) -> dict:
+def _run_cli(data: str, out: str, mode: str, *flags: str) -> dict:
     from duet_tpu_torch.cli import main as cli_main
 
     rc = cli_main([os.path.join(data, "reads.bam"),
                    os.path.join(data, "ref.fa"), out,
-                   "--device-stages", mode])
+                   "--device-stages", mode, *flags])
     if rc != 0:
         raise AssertionError(f"duet-tpu-torch --device-stages {mode} "
-                             f"exited {rc}")
+                             f"{' '.join(flags)} exited {rc}")
     with open(os.path.join(out, "metrics.json")) as f:
         return json.load(f)
 
 
-def phase_pipeline_on(report: dict, data: str, work: str) -> None:
+def phase_ingest(report: dict, data: str) -> None:
+    """The native ingest on this machine: built from the port's zlib copy
+    of the ingest source, it decodes the smoke BAM into the Python
+    reader's store."""
+    import ctypes
+
+    from duet_tpu_torch.io import native_ingest
+    from duet_tpu_torch.io.readstore import load_read_store
+
+    t = time.perf_counter()
+    lib = native_ingest.get_lib()
+    build_s = time.perf_counter() - t
+    lib.zlibVersion.restype = ctypes.c_char_p
+    bam = os.path.join(data, "reads.bam")
+    t = time.perf_counter()
+    store = native_ingest.load_read_store_native(
+        bam, n_threads=min(4, os.cpu_count() or 1))
+    native_s = time.perf_counter() - t
+    stats = native_ingest.LAST_DECODE_STATS
+    t = time.perf_counter()
+    want = load_read_store(bam)
+    python_s = time.perf_counter() - t
+    if list(store.contigs) != list(want.contigs) or \
+            store.contig_lengths != want.contig_lengths:
+        raise AssertionError("the native store holds other contigs")
+    for c, cr in want.contigs.items():
+        got = store.contigs[c]
+        if got.names != cr.names:
+            raise AssertionError(f"native ingest: {c} read names differ")
+        for f in ("starts", "ends", "strand", "mapq", "supp", "cigar_off",
+                  "cigar_ops", "cigar_lens", "seq_off", "seq", "qual"):
+            if not np.array_equal(getattr(got, f), getattr(cr, f)):
+                raise AssertionError(f"native ingest: {c}.{f} differs")
+    n_reads = sum(c.n for c in store.contigs.values())
+    print(f"[ingest] zlib route: <zlib.h> + {' '.join(native_ingest._LDFLAGS)}"
+          f" (zlib {lib.zlibVersion().decode()}), library "
+          f"{os.path.relpath(native_ingest._so_path())} ready in "
+          f"{build_s:.1f} s; decoded {n_reads} reads in {native_s:.3f} s "
+          f"(Python reader {python_s:.3f} s), "
+          f"store equal to the Python reader's; stats {json.dumps(stats)}",
+          flush=True)
+
+
+def _reset_launches() -> None:
     import torch
 
     from duet_tpu_torch.ops import haplotag_kernel
 
     torch.cuda.synchronize()
     haplotag_kernel.reset_launches()
+
+
+def _all_on_device(metrics: dict, path: str) -> None:
+    wrong = {s: b for s, b in metrics["backends"].items() if b != "device"}
+    if wrong:
+        raise AssertionError(f"{path}: stages not on the device: {wrong}")
+
+
+def phase_pipeline_on(report: dict, data: str, work: str) -> None:
+    from duet_tpu_torch.ops import haplotag_kernel
+
+    _reset_launches()
     metrics = _run_cli(data, os.path.join(work, "on"), "on")
     counts = dict(haplotag_kernel.LAUNCHES)
     report["launches"] = counts["haplotag_score"]
-    backends = metrics["backends"]
-    wrong = {s: b for s, b in backends.items() if b != "device"}
-    if wrong:
-        raise AssertionError(f"stages not on the device: {wrong}")
+    _all_on_device(metrics, "the pipeline")
     _require_launches(counts, ["haplotag_score"], "the pipeline (dense)")
+    if metrics["ingest"]["backend"] != "native":
+        raise AssertionError(f"the pipeline ingested with "
+                             f"{metrics['ingest']['backend']}, not native")
     report["pipeline_on"] = metrics
     print(f"[pipeline on] backends all device, haplotag_score launches "
           f"{report['launches']}, ingest {metrics['ingest']['backend']}, "
@@ -768,17 +837,127 @@ def phase_pipeline_sparse(report: dict, data: str, work: str) -> None:
           f"{json.dumps(metrics['stages'])}", flush=True)
 
 
+def phase_stream(report: dict, data: str, work: str) -> None:
+    """--stream under on: contig-major, native ingest, the batched score
+    kernel launched per contig, byte-identical to the batch run."""
+    from duet_tpu_torch.ops import haplotag_kernel
+
+    _reset_launches()
+    t = time.perf_counter()
+    metrics = _run_cli(data, os.path.join(work, "stream"), "on", "--stream")
+    wall = time.perf_counter() - t
+    counts = dict(haplotag_kernel.LAUNCHES)
+    _require_launches(counts, ["haplotag_score"], "the streaming pipeline")
+    if metrics["ingest_backend"] != "native":
+        raise AssertionError(f"--stream ingested with "
+                             f"{metrics['ingest_backend']}, not native")
+    _all_on_device(metrics, "--stream")
+    n = _compare_artifacts(os.path.join(work, "stream"),
+                           os.path.join(work, "on"))
+    batch = report["pipeline_on"]
+    report["stream_launches"] = counts["haplotag_score"]
+    print(f"[stream] {n} artifacts byte-identical to the batch run; ingest "
+          f"native; haplotag_score launches {counts['haplotag_score']} (batch "
+          f"{report['launches']}); wall {wall:.2f} s, total "
+          f"{metrics['total_s']} s (batch {batch['total_s']} s); stages "
+          f"{json.dumps(metrics['stages'])}; stage_peak_rss_mb "
+          f"{json.dumps(metrics['stage_peak_rss_mb'])}, peak_rss_mb "
+          f"{metrics['peak_rss_mb']} (batch peak_rss_mb "
+          f"{batch['peak_rss_mb']}; both this process's high-water mark); "
+          f"device_cost haplotag "
+          f"{json.dumps(metrics['device_cost']['haplotag'])}", flush=True)
+
+
+def phase_resume(report: dict, data: str, work: str) -> None:
+    """--resume on a copy of the batch run's calling stages: the pileup is
+    loaded, the SV calls kept, the phasing rerun on the card."""
+    from duet_tpu_torch.ops import haplotag_kernel
+
+    out = os.path.join(work, "resume")
+    for d in ("snp_calling", "sv_calling"):
+        shutil.copytree(os.path.join(work, "on", d), os.path.join(out, d))
+    _reset_launches()
+    metrics = _run_cli(data, out, "on", "--resume")
+    counts = dict(haplotag_kernel.LAUNCHES)
+    _require_launches(counts, ["haplotag_score"], "the resumed pipeline")
+    n = _compare_artifacts(out, os.path.join(work, "on"))
+    with open(os.path.join(out, "run_duet.log")) as f:
+        log = f.read()
+    if "resume: loading" not in log or "resume: keeping" not in log:
+        raise AssertionError("--resume reran a calling stage")
+    print(f"[resume] {n} artifacts byte-identical to the batch run; "
+          f"haplotag_score launches {counts['haplotag_score']}; total "
+          f"{metrics['total_s']} s, stages {json.dumps(metrics['stages'])}",
+          flush=True)
+
+
+def phase_phase_only(report: dict, work: str) -> None:
+    """--phase-only from the batch run's variants.vcf and haplotag tables."""
+    from duet_tpu_torch.cli import main as cli_main
+
+    on = os.path.join(work, "on")
+    out = os.path.join(work, "phase_only")
+    shutil.copytree(os.path.join(on, "sv_calling"),
+                    os.path.join(out, "sv_calling"))
+    os.makedirs(os.path.join(out, "snp_phasing"))
+    tables = [n for n in os.listdir(os.path.join(on, "snp_phasing"))
+              if n.endswith(".haplotags.tsv")]
+    for name in tables:
+        shutil.copy(os.path.join(on, "snp_phasing", name),
+                    os.path.join(out, "snp_phasing"))
+    t = time.perf_counter()
+    rc = cli_main(["", "", out, "--phase-only", "--device-stages", "on"])
+    wall = time.perf_counter() - t
+    if rc != 0:
+        raise AssertionError(f"duet-tpu-torch --phase-only exited {rc}")
+    if _read(os.path.join(out, "phased_sv.vcf")) != \
+            _read(os.path.join(on, "phased_sv.vcf")):
+        raise AssertionError("--phase-only wrote another phased_sv.vcf")
+    print(f"[phase-only] phased_sv.vcf byte-identical to the batch run's, "
+          f"from variants.vcf and {len(tables)} haplotag tables, in "
+          f"{wall:.2f} s", flush=True)
+
+
+def phase_flags(report: dict, data: str, work: str) -> None:
+    """--snp-model nn --haplotag-bam under on and under off: the same
+    artifacts, the per-contig haplotagged BAMs and their indexes included."""
+    from duet_tpu_torch.ops import haplotag_kernel
+
+    flags = ("--snp-model", "nn", "--haplotag-bam")
+    _reset_launches()
+    on = _run_cli(data, os.path.join(work, "flags_on"), "on", *flags)
+    counts = dict(haplotag_kernel.LAUNCHES)
+    _require_launches(counts, ["haplotag_score"], "--snp-model nn under on")
+    before = dict(haplotag_kernel.LAUNCHES)
+    off = _run_cli(data, os.path.join(work, "flags_off"), "off", *flags)
+    if haplotag_kernel.LAUNCHES != before:
+        raise AssertionError("--device-stages off launched a kernel")
+    if on["backends"]["snp_pileup"] != "nn" or \
+            off["backends"]["snp_pileup"] != "nn":
+        raise AssertionError("--snp-model nn did not call with the network")
+    bams = sorted(n for n in os.listdir(os.path.join(work, "flags_on",
+                                                     "snp_phasing"))
+                  if n.endswith(".bam"))
+    if not bams:
+        raise AssertionError("--haplotag-bam wrote no BAM")
+    n = _compare_artifacts(os.path.join(work, "flags_on"),
+                           os.path.join(work, "flags_off"))
+    print(f"[flags] {' '.join(flags)}: {n} artifacts byte-identical between "
+          f"on and off, BAMs {bams} included; backends on "
+          f"{json.dumps(on['backends'])}; haplotag_score launches "
+          f"{counts['haplotag_score']}; total on {on['total_s']} s, stages "
+          f"{json.dumps(on['stages'])}; off {off['total_s']} s, stages "
+          f"{json.dumps(off['stages'])}", flush=True)
+
+
 def phase_bench(report: dict) -> None:
     """`python -m duet_tpu_torch.bench` (kernel + e2e auto + e2e on), in
     process; it must go through the fused kernels and print one JSON
     line, last."""
-    import torch
-
     from duet_tpu_torch import bench
     from duet_tpu_torch.ops import haplotag_kernel
 
-    torch.cuda.synchronize()
-    haplotag_kernel.reset_launches()
+    _reset_launches()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         rc = bench.main([])
@@ -815,6 +994,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
         return 1
     report: dict = {}
+    t0 = time.perf_counter()
     work = tempfile.mkdtemp(prefix="duet_chip_smoke_")
     try:
         phase_card(report)
@@ -825,9 +1005,14 @@ def main() -> int:
         phase_score_pre(report)
         phase_nn(report)
         data = phase_simulate(report, work)
+        phase_ingest(report, data)
         phase_pipeline_on(report, data, work)
         phase_pipeline_off(report, data, work)
         phase_pipeline_sparse(report, data, work)
+        phase_stream(report, data, work)
+        phase_resume(report, data, work)
+        phase_phase_only(report, work)
+        phase_flags(report, data, work)
         phase_bench(report)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -840,6 +1025,8 @@ def main() -> int:
                 "haplotag_sweep": report["bench_launches"]["haplotag_sweep"],
                 "haplotag_score_shared":
                     report["bench_launches"]["haplotag_score_shared"]}
+    print(f"[wall] every phase in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     print(report["card"])
     print(json.dumps({"kernels": [{
         "name": name,

@@ -2,9 +2,10 @@
 
 The flag set of ``duet-tpu`` (a copy of its parser, help texts included)
 plus ``--device {cuda,cpu}``, the explicit device of the port's device
-routes (default cuda).  Modes the port does not run yet — --stream, --phase-only, --resume,
---mesh, --profile and multi-process runs — raise NotImplementedError
-instead of being ignored.
+routes (default cuda).  The batch run, --resume, --stream and --phase-only
+run as in duet-tpu; the modes the port does not run yet — --mesh,
+--profile and multi-process runs — raise NotImplementedError instead of
+being ignored.
 """
 
 from __future__ import annotations
@@ -12,7 +13,13 @@ from __future__ import annotations
 import argparse
 import sys
 
-from duet_tpu_torch.pipeline import PipelineConfig, _not_ported, run_pipeline
+from duet_tpu_torch.pipeline import (
+    PipelineConfig,
+    _not_ported,
+    run_phase_only,
+    run_pipeline,
+    run_pipeline_streaming,
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -125,10 +132,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    if args.stream:
-        raise _not_ported("--stream", "10")
-    if args.phase_only:
-        raise _not_ported("--phase-only", "10")
     if args.profile:
         raise _not_ported("--profile", "4")
     cfg = PipelineConfig(
@@ -158,8 +161,18 @@ def main(argv: list[str] | None = None) -> int:
         process_id=args.process_id,
         device=args.device,
     )
+    return _dispatch(args, cfg)
+
+
+def _dispatch(args, cfg: PipelineConfig) -> int:
+    """Mirrors ``duet_tpu.cli._dispatch``: phase-only, streaming or batch."""
     try:
-        run_pipeline(cfg)
+        if args.phase_only:
+            run_phase_only(cfg)
+        elif args.stream:
+            run_pipeline_streaming(cfg)
+        else:
+            run_pipeline(cfg)
     except FileNotFoundError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2

@@ -1,4 +1,4 @@
-"""ctypes bridge to the native ingest library (native/duet_ingest.cc).
+"""ctypes bridge to the native ingest library (csrc/duet_ingest.cc).
 
 Loads libduet_ingest.so (building it with g++ on first use if the
 toolchain is present) and exposes the STREAMING contig iterator the C++
@@ -14,10 +14,16 @@ record-to-column decode, and an in-decoder contig filter.  On top of it:
 Falls back to the Python path when the library can't be built
 (NativeUnavailable).
 
-The library is built from the repository's shared source
-``native/duet_ingest.cc`` with the flags of ``native/Makefile``, into
+The library is built from the port's own copy of the ingest source,
+``duet_tpu_torch/csrc/duet_ingest.cc``: ``native/duet_ingest.cc`` verbatim
+but for its BGZF member inflate, which calls zlib (one reusable
+``z_stream`` per thread, the gzip trailer's CRC32 and ISIZE checked)
+where the original links a separate inflate library, so it builds and
+loads on any host with zlib.  It is compiled with native/Makefile's
+compiler flags, linked against zlib alone, into
 ``build/duet_tpu_torch/native-<hash>/`` (keyed by a hash of the source and
-flags), so that this package never loads an object another package built."""
+flags), so that this package never loads an object another package
+built."""
 
 from __future__ import annotations
 
@@ -32,12 +38,11 @@ import numpy as np
 from duet_tpu_torch.io.readstore import ContigReads, ReadStore
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_NATIVE_DIR = os.path.join(_REPO_ROOT, "native")
-_SRC = os.path.join(_NATIVE_DIR, "duet_ingest.cc")
+_SRC = os.path.join(_REPO_ROOT, "duet_tpu_torch", "csrc", "duet_ingest.cc")
 _BUILD_ROOT = os.path.join(_REPO_ROOT, "build", "duet_tpu_torch")
-# native/Makefile's CXXFLAGS and LDFLAGS
+# native/Makefile's CXXFLAGS; its LDFLAGS but for the inflate library
 _CXXFLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra")
-_LDFLAGS = ("-shared", "-lz", "-ldeflate", "-lpthread")
+_LDFLAGS = ("-shared", "-lz", "-lpthread")
 
 _lib = None
 

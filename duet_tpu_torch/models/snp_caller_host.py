@@ -406,3 +406,72 @@ def write_pileup_vcf(path: str, snps: dict[str, ContigSnps],
                 f"{s.depth[k] - s.alt_count[k]},{s.alt_count[k]}"
             )
     write_vcf(path, header, records)
+
+
+def read_pileup_vcf(path: str) -> dict[str, ContigSnps]:
+    """Inverse of write_pileup_vcf, for resume-from-artifacts.
+
+    FORMAT-aware, so a REAL Clair3 pileup.vcf.gz dropped into
+    snp_calling/ works as a --resume input too (Clair3 emits e.g.
+    GT:GQ:DP:AF — reference snp_calling.py:13-17's artifact): genotype
+    phasedness separators both accepted, depth from DP or AD, alt count
+    from AD, else round(AF*DP), else a het/hom-consistent fallback.
+    Multi-allelic ALTs keep their first allele (the downstream contract is
+    one alt per site, as in the counting caller)."""
+    from duet_tpu_torch.io.vcf import open_maybe_gzip
+
+    code = {b: i for i, b in enumerate(BASES)}
+    per: dict[str, list] = {}
+    with open_maybe_gzip(path) as f:
+        for line in f:
+            if line.startswith("#"):
+                continue
+            cols = line.split()
+            if len(cols) < 10:
+                continue
+            ref = cols[3][:1].upper()
+            alt = cols[4].split(",")[0][:1].upper()
+            if len(cols[3]) != 1 or len(cols[4].split(",")[0]) != 1:
+                continue  # indel record: not a pileup SNP site
+            fmap = dict(zip(cols[8].split(":"), cols[9].split(":")))
+            gt = fmap.get("GT", "0/1").replace("|", "/")
+            if gt in ("0/0", "./.", "."):
+                continue
+            # het = two distinct alleles, including multi-allelic hets like
+            # Clair3's 1/2 (neither allele is the ref); only a genuinely
+            # homozygous-alt GT (1/1) resumes as hom
+            is_het = len(set(gt.split("/"))) > 1
+            depth = 0
+            if fmap.get("DP", ".").isdigit():
+                depth = int(fmap["DP"])
+            ad = fmap.get("AD", "")
+            alt_count = 0
+            if "," in ad:
+                parts = ad.split(",")
+                if parts[1].replace(".", "").isdigit() and parts[1] != ".":
+                    alt_count = int(parts[1])
+                    if depth == 0:
+                        depth = sum(int(p) for p in parts if p.isdigit())
+            if alt_count == 0:
+                af = fmap.get("AF", "")
+                try:
+                    alt_count = int(round(float(af) * depth))
+                except ValueError:
+                    alt_count = depth // 2 if is_het else depth
+            per.setdefault(cols[0], []).append((
+                int(cols[1]) - 1, code.get(ref, 4), code.get(alt, 4),
+                is_het, depth, alt_count,
+            ))
+    out = {}
+    for contig, rows in per.items():
+        a = list(zip(*rows))
+        out[contig] = ContigSnps(
+            contig,
+            np.array(a[0], dtype=np.int64),
+            np.array(a[1], dtype=np.uint8),
+            np.array(a[2], dtype=np.uint8),
+            np.array(a[3], dtype=bool),
+            np.array(a[4], dtype=np.int32),
+            np.array(a[5], dtype=np.int32),
+        )
+    return out

@@ -1,5 +1,6 @@
 """Device glue of the SNP-phasing stage: refine on torch, then score the
-reads of every contig in one batch (``score_contigs_batched``).
+reads of every contig in one batch (``score_contigs_batched``, the batch
+pipeline) or of one contig (``phase_contig``, the streaming pipeline).
 
 The allele matrix, initial phasing, switch correction, weak-junction
 splitting, the host scorers and the sparse scorer's epilogue are the port's
@@ -222,6 +223,33 @@ def phase_contig_core(cr, snps, cfg=None, sweeps: int = 2,
     if new_ps is not None:
         block_id, block_ps = new_id, new_ps
     return am, phase, block_id, block_ps
+
+
+def phase_contig(cr, snps, cfg=None, sweeps: int = 2,
+                 use_device: bool = False, obs=None,
+                 min_junction_evidence: float = 0.0,
+                 device_min_nnz: int = 0,
+                 adaptive_junction_split: bool = False,
+                 protect_intervals=None,
+                 device: torch.device = _CPU) -> PhaseResult:
+    """Mirrors ``duet_tpu.models.snp_phaser.phase_contig`` without the
+    mesh: one contig's refine and read scoring, both on `device` when
+    use_device and the allele matrix clears `device_min_nnz` (the scoring
+    through ``_haplotag_device``, one contig at a time; the batch pipeline
+    batches it across contigs in ``score_contigs_batched``)."""
+    am, phase, block_id, block_ps = phase_contig_core(
+        cr, snps, cfg, sweeps,
+        use_device=use_device, obs=obs,
+        min_junction_evidence=min_junction_evidence,
+        device_min_nnz=device_min_nnz,
+        adaptive_junction_split=adaptive_junction_split,
+        protect_intervals=protect_intervals, device=device)
+    if use_device and len(am.row) >= device_min_nnz:
+        tagging = _haplotag_device(am, phase, block_id, block_ps,
+                                   device=device)
+    else:
+        tagging = _haplotag(am, phase, block_id, block_ps)
+    return _as_result(am, phase, block_id, block_ps, tagging)
 
 
 def score_contigs_batched(cores: dict[str, tuple], use_device: bool,

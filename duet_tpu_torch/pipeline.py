@@ -1,10 +1,14 @@
-"""The batch pipeline, BAM -> phased_sv.vcf, with its device routes on torch.
+"""The pipeline, BAM -> phased_sv.vcf, with its device routes on torch.
 
-Port of ``duet_tpu.pipeline``'s batch mode: the same four stages (SNP
-calling -> SV calling -> SNP phasing -> SV phasing), the same on-disk
-artifacts and the same ``metrics.json`` schema.  The host helpers (ingest,
-the artifact writers, contig naming, the run state) are copies of the JAX
-package's, and the stages are copies whose device lines call the port.
+Port of ``duet_tpu.pipeline``'s single-process modes: the batch run
+(``run_pipeline``, with ``--resume``), the contig-major streaming run
+(``run_pipeline_streaming``, ``--stream``) and the final stage alone from
+on-disk artifacts (``run_phase_only``, ``--phase-only``).  They run the
+same four stages (SNP calling -> SV calling -> SNP phasing -> SV phasing)
+and write the same on-disk artifacts and ``metrics.json`` schemas.  The
+host helpers (ingest, the artifact writers, contig naming, the run state)
+are copies of the JAX package's, and the stages are copies whose device
+lines call the port.
 
 The device is explicit: ``PipelineConfig.device`` ('cuda' by default, or
 'cpu', which runs the same torch routes on the host).  ``device_stages``
@@ -13,9 +17,8 @@ size, 'off' keeps every stage on the host, and 'auto' uses the device only
 when it is a GPU and the input clears the JAX package's fast-link size
 gates (no link probe).  Outputs are byte-identical whichever route runs.
 
-Not ported yet (they raise NotImplementedError): --resume, --mesh, and
-multi-process runs (--coordinator / --num-processes); --stream and
---phase-only are refused by the CLI.
+Not ported yet (they raise NotImplementedError): --mesh and multi-process
+runs (--coordinator / --num-processes).
 """
 
 from __future__ import annotations
@@ -39,9 +42,11 @@ from duet_tpu_torch.models.snp_caller import call_snps_for_store
 from duet_tpu_torch.models.snp_caller_host import (
     ContigSnps,
     SnpCallConfig,
+    read_pileup_vcf,
     write_pileup_vcf,
 )
 from duet_tpu_torch.models.snp_phaser import (
+    phase_contig,
     phase_contig_core,
     score_contigs_batched,
 )
@@ -348,8 +353,6 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 def _refuse_unported(cfg: PipelineConfig) -> None:
-    if cfg.resume:
-        raise _not_ported("--resume", "10")
     if cfg.mesh is not None:
         raise _not_ported("--mesh", "11")
     if cfg.coordinator is not None or (cfg.num_processes or 1) > 1:
@@ -360,6 +363,11 @@ def stage_snp_calling(cfg: PipelineConfig, st: PipelineState) -> None:
     """Mirrors ``duet_tpu.pipeline.stage_snp_calling`` (single process)."""
     out_dir = os.path.join(cfg.output, "snp_calling")
     os.makedirs(out_dir, exist_ok=True)
+    artifact = os.path.join(out_dir, "pileup.vcf.gz")
+    if cfg.resume and os.path.exists(artifact):
+        get_logger().info("resume: loading %s", artifact)
+        st.snps = read_pileup_vcf(artifact)
+        return
     # key reference codes by the STORE's contig spelling
     work_fa = _work_contigs(cfg, st.ref.contig_names)
     ref_codes = {}
@@ -371,8 +379,7 @@ def stage_snp_calling(cfg: PipelineConfig, st: PipelineState) -> None:
     st.snps, st.site_obs = call_snps_for_store(
         st.store, ref_codes, cfg.snp_cfg(), threads=cfg.threads,
         device=cfg.torch_device(), nn_device=cfg.nn_device())
-    write_pileup_vcf(os.path.join(out_dir, "pileup.vcf.gz"), st.snps,
-                     st.store.contig_lengths)
+    write_pileup_vcf(artifact, st.snps, st.store.contig_lengths)
     n = sum(len(s.pos) for s in st.snps.values())
     get_logger().info("called %d SNP sites over %d contigs", n, len(st.snps))
 
@@ -381,6 +388,10 @@ def stage_sv_calling(cfg: PipelineConfig, st: PipelineState) -> None:
     """Mirrors ``duet_tpu.pipeline.stage_sv_calling`` (single process)."""
     out_dir = os.path.join(cfg.output, "sv_calling")
     os.makedirs(out_dir, exist_ok=True)
+    artifact = os.path.join(out_dir, "variants.vcf")
+    if cfg.resume and os.path.exists(artifact):
+        get_logger().info("resume: keeping %s", artifact)
+        return
     sv_cfg = cfg.sv_cfg()
     dev = cfg.torch_device()
 
@@ -400,8 +411,8 @@ def stage_sv_calling(cfg: PipelineConfig, st: PipelineState) -> None:
     evidence = {c: r[1] for c, r in results}
     st.sv_calls = calls  # the phasing stage protects their support spans
     bnds = call_bnds(evidence, sv_cfg)
-    write_sv_vcf(os.path.join(out_dir, "variants.vcf"), calls,
-                 st.store.contig_lengths, family=cfg.sv_caller, bnds=bnds)
+    write_sv_vcf(artifact, calls, st.store.contig_lengths,
+                 family=cfg.sv_caller, bnds=bnds)
     n = sum(len(v) for v in calls.values())
     get_logger().info("clustered %d SV candidates + %d breakend pairs",
                       n, len(bnds))
@@ -414,6 +425,17 @@ def stage_snp_phasing(cfg: PipelineConfig, st: PipelineState) -> None:
     their combined nnz clears the gate (``score_contigs_batched``)."""
     out_dir = os.path.join(cfg.output, "snp_phasing")
     os.makedirs(out_dir, exist_ok=True)
+    if cfg.resume and not st.sv_calls:
+        # resumed run: the calls the protection intervals need live only in
+        # the artifact; parse it once, keyed by the store's contig spellings
+        variants = os.path.join(cfg.output, "sv_calling", "variants.vcf")
+        if os.path.exists(variants):
+            parsed = parse_sv_vcf(variants, True)
+            for c in st.store.contigs:
+                for key in (c, strip_chr(c), "chr" + strip_chr(c)):
+                    if key in parsed:
+                        st.sv_calls[c] = parsed[key]
+                        break
     dev = cfg.torch_device()
     use_device = cfg.stages_on_device()
     min_nnz = cfg.phasing_device_min_nnz()
@@ -511,6 +533,223 @@ STAGES = (
 )
 
 
+def _device_info(dev: torch.device) -> dict:
+    """metrics.json's "device": the device the run was configured for."""
+    return {
+        "type": dev.type,
+        "name": torch.cuda.get_device_name(dev)
+        if dev.type == "cuda" and torch.cuda.is_available() else None,
+    }
+
+
+def run_pipeline_streaming(cfg: PipelineConfig) -> str:
+    """Contig-major streaming run for memory-bounded whole-genome inputs;
+    mirrors ``duet_tpu.pipeline.run_pipeline_streaming`` (single device, no
+    mesh, no compile cache).
+
+    Instead of decoding the whole BAM up front, each coordinate-sorted
+    contig is decoded, SNP-called, SV-called, phased and haplotagged, then
+    released: peak memory is one contig's reads (two while the next contig
+    decodes ahead).  The final cross-contig SV-phasing stage runs once at
+    the end.  Output artifacts are identical to run_pipeline's.  The device
+    routes follow ``stages_on_device``, and each contig's reads are scored
+    on their own (``phase_contig``), not batched across contigs."""
+    from duet_tpu_torch.io.readstore import (
+        prefetch_iter,
+        stream_contig_reads_auto,
+    )
+    from duet_tpu_torch.models.snp_caller import call_contig_snps
+
+    if (cfg.num_processes or 1) > 1:
+        raise ValueError("--stream does not combine with multi-process runs; "
+                         "use one mode or the other")
+    _refuse_unported(cfg)
+    dev = cfg.torch_device()
+    check_envs(cfg)
+    os.makedirs(cfg.output, exist_ok=True)
+    setup_logging(cfg.output)
+    log = get_logger()
+    t0 = time.time()
+    dispatch.reset()
+    devcost.reset()
+
+    st = PipelineState()
+    st.ref = FastaFile(cfg.reference)
+    snp_dir = os.path.join(cfg.output, "snp_calling")
+    sv_dir = os.path.join(cfg.output, "sv_calling")
+    ph_dir = os.path.join(cfg.output, "snp_phasing")
+    for d in (snp_dir, sv_dir, ph_dir):
+        os.makedirs(d, exist_ok=True)
+
+    aliases = {}
+    for canonical in _work_contigs(cfg, st.ref.contig_names):
+        aliases[canonical] = canonical
+        aliases[strip_chr(canonical)] = canonical
+        aliases["chr" + strip_chr(canonical)] = canonical
+
+    snps_all: dict[str, ContigSnps] = {}
+    calls_all: dict[str, list] = {}
+    bnd_evidence: dict = {}
+    lengths: dict[str, int] = {}
+    n_reads = 0
+    # per-stage seconds summed over the contig loop, and the RSS high-water
+    # mark right after each stage (ru_maxrss is monotone: the stage where a
+    # value first jumps is where the peak formed)
+    stage_s = {"ingest": 0.0, "snp_calling": 0.0, "sv_calling": 0.0,
+               "snp_phasing": 0.0}
+    stage_rss = dict.fromkeys(stage_s, 0.0)
+
+    def _mark(stage: str, t_start: float) -> None:
+        stage_s[stage] += time.perf_counter() - t_start
+        stage_rss[stage] = max(stage_rss[stage], _peak_rss_mb())
+
+    stream, stream_backend = stream_contig_reads_auto(
+        cfg.bam, n_threads=cfg.threads)
+    # contig N+1 decodes on a background thread while the stages process
+    # contig N ("ingest" below is then the stall waiting for the decode);
+    # only with spare cores, where the two do not just time-slice
+    try:
+        n_cores = len(os.sched_getaffinity(0))
+    except AttributeError:  # non-Linux
+        n_cores = os.cpu_count() or 1
+    prefetch = n_cores >= 4
+    if prefetch:
+        stream = prefetch_iter(stream, depth=1)
+    log.info("streaming ingest backend: %s%s", stream_backend,
+             " (prefetch depth 1)" if prefetch else "")
+    use_device = cfg.stages_on_device()
+    with StageTimer("STREAMING CONTIG PASS"):
+        t_iter = time.perf_counter()
+        for cr, contig_lengths in stream:
+            _mark("ingest", t_iter)  # generator time = decode time
+            if cr.contig not in aliases:
+                t_iter = time.perf_counter()
+                continue
+            if cr.contig in snps_all:
+                # a repeated contig means the BAM is not coordinate-sorted;
+                # the first segment's results are already released, so
+                # keeping the last would drop reads
+                raise ValueError(
+                    f"--stream requires a coordinate-sorted BAM: contig "
+                    f"{cr.contig} appears in multiple stream segments; "
+                    "run without --stream (batch mode merges segments)"
+                )
+            lengths.update(contig_lengths)
+            n_reads += cr.n
+            fa_name = aliases[cr.contig]
+            if fa_name not in st.ref.index:
+                fa_name = cr.contig
+            t = time.perf_counter()
+            codes = st.ref.fetch_codes(fa_name)
+            _mark("ingest", t)  # reference load is ingest, not SNP calling
+            t = time.perf_counter()
+            snps, site_obs = call_contig_snps(cr.contig, cr, codes,
+                                              cfg.snp_cfg(), dev,
+                                              cfg.nn_device())
+            snps_all[cr.contig] = snps
+            _mark("snp_calling", t)
+            # cross-contig breakend evidence survives the contig's release
+            t = time.perf_counter()
+            calls_all[cr.contig], bnd_evidence[cr.contig] = \
+                call_contig_with_evidence(cr, cfg.sv_cfg(), device=dev)
+            st.sv_calls[cr.contig] = calls_all[cr.contig]
+            _mark("sv_calling", t)
+            t = time.perf_counter()
+            result = phase_contig(
+                cr, snps, cfg.snp_cfg(), use_device=use_device, obs=site_obs,
+                min_junction_evidence=cfg.min_junction_evidence,
+                device_min_nnz=cfg.phasing_device_min_nnz(),
+                adaptive_junction_split=cfg.adaptive_junction_split,
+                protect_intervals=_sv_protect_intervals(cfg, st, cr.contig,
+                                                        cr=cr),
+                device=dev)
+            st.read_haps[cr.contig] = read_hap_map(cr, result)
+            write_phased_snp_vcf(
+                os.path.join(ph_dir, f"phased_{cr.contig}.vcf.gz"),
+                cr.contig, snps, result)
+            _write_haplotag_table(
+                os.path.join(ph_dir, f"{cr.contig}.haplotags.tsv"),
+                st.read_haps[cr.contig])
+            _mark("snp_phasing", t)
+            log.info("[STREAM] %s: %d reads, %d SNPs, %d SV candidates, "
+                     "%d blocks", cr.contig, cr.n, len(snps.pos),
+                     len(calls_all[cr.contig]), len(result.block_ps))
+            st.ref.drop_cache(fa_name)
+            t_iter = time.perf_counter()
+    write_pileup_vcf(os.path.join(snp_dir, "pileup.vcf.gz"), snps_all, lengths)
+    write_sv_vcf(os.path.join(sv_dir, "variants.vcf"), calls_all, lengths,
+                 family=cfg.sv_caller,
+                 bnds=call_bnds(bnd_evidence, cfg.sv_cfg()))
+    st.snps = snps_all
+    with StageTimer("SV PHASING"):
+        t = time.perf_counter()
+        stage_sv_phasing(cfg, st)
+        stage_s["sv_phasing"] = time.perf_counter() - t
+        stage_rss["sv_phasing"] = _peak_rss_mb()
+    total = round(time.time() - t0, 4)
+    log.info("ALL STAGES COMPLETED IN %ss (streamed %d reads)", total, n_reads)
+    snap = dispatch.snapshot()
+    ingest_block: dict = {"backend": stream_backend}
+    if stream_backend == "native":
+        from duet_tpu_torch.io import native_ingest as _ni
+
+        if _ni.LAST_DECODE_STATS is not None:
+            ingest_block["native"] = _ni.LAST_DECODE_STATS
+    with open(os.path.join(cfg.output, "metrics.json"), "w") as f:
+        json.dump({
+            "mode": "streaming",
+            "ingest_backend": stream_backend,
+            "ingest": ingest_block,
+            # the JAX package's link-probe evidence; the port runs no probe
+            "h2d_probe_mb_s": None,
+            "h2d_worst_put_s": None,
+            "backends": {s: dispatch.backend_label(s, snap)
+                         for s in dispatch.STAGES},
+            "device_dispatch": snap,
+            "device_cost": devcost.snapshot(),
+            "device": _device_info(dev),
+            "stages": {k: round(v, 4) for k, v in stage_s.items()},
+            "stage_peak_rss_mb": {k: round(v, 1)
+                                  for k, v in stage_rss.items()},
+            "peak_rss_mb": _peak_rss_mb(),
+            "counts": {
+                "reads": n_reads,
+                "contigs": len(snps_all),
+                "snp_sites": sum(len(s.pos) for s in snps_all.values()),
+                "sv_candidates": sum(len(v) for v in calls_all.values()),
+                "tagged_reads": sum(len(m) for m in st.read_haps.values()),
+            },
+            "total_s": total,
+            "reads_per_s": round(n_reads / max(total, 1e-9), 1),
+        }, f, indent=2)
+    return os.path.join(cfg.output, "phased_sv.vcf")
+
+
+def pileup_observations_for(cr, cfg: PipelineConfig):
+    """Mirrors ``duet_tpu.pipeline.pileup_observations_for``."""
+    from duet_tpu_torch.models.snp_caller_host import pileup_observations
+
+    return pileup_observations(cr, cfg.snp_cfg())
+
+
+def run_phase_only(cfg: PipelineConfig) -> str:
+    """Final stage only, from on-disk artifacts; mirrors
+    ``duet_tpu.pipeline.run_phase_only``.
+
+    OUTPUT must hold sv_calling/variants.vcf (any supported caller format)
+    and snp_phasing/ with either .haplotags.tsv tables or reference-style
+    haplotagged per-chromosome BAMs carrying HP/PC/PS tags, so reference
+    users can re-phase their existing intermediates."""
+    if (cfg.num_processes or 1) > 1:
+        raise ValueError("--phase-only is a single-process mode")
+    os.makedirs(cfg.output, exist_ok=True)
+    setup_logging(cfg.output)
+    st = PipelineState()
+    with StageTimer("SV PHASING"):
+        stage_sv_phasing(cfg, st)
+    return os.path.join(cfg.output, "phased_sv.vcf")
+
+
 def run_pipeline(cfg: PipelineConfig) -> str:
     """Run all stages; returns the phased_sv.vcf path.  Mirrors
     ``duet_tpu.pipeline.run_pipeline`` (single process, no mesh, no
@@ -566,11 +805,7 @@ def run_pipeline(cfg: PipelineConfig) -> str:
                            for s in dispatch.STAGES}
     metrics["device_dispatch"] = snap
     metrics["device_cost"] = devcost.snapshot()
-    metrics["device"] = {
-        "type": dev.type,
-        "name": torch.cuda.get_device_name(dev)
-        if dev.type == "cuda" and torch.cuda.is_available() else None,
-    }
+    metrics["device"] = _device_info(dev)
     if cfg.device_stages == "auto":
         # the JAX package's fast-link gates; the port runs no link probe
         metrics["device_size_gates"] = {

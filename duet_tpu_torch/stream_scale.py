@@ -1,0 +1,123 @@
+"""Streaming against batch at chromosome scale.
+
+Run as ``python -m duet_tpu_torch.stream_scale``.  It simulates a dataset
+with contigs at the lengths of GRCh38's chr20 and chr21 (64,444,167 and
+46,709,983 bp) at 20x (seed 5), then runs the port's CLI on it twice under
+``--device-stages on``: the batch run, then ``--stream``.  Each run is a
+process of its own, so that each reports its own peak memory.  It prints
+one line per run (wall, ``total_s``, stage seconds, ``peak_rss_mb``,
+``stage_peak_rss_mb``, the ingest backend), checks that the two runs wrote
+byte-identical artifacts, and prints one JSON object with all of it as the
+last line.  It fails if the artifacts differ.
+
+Options: ``--contigs NAME:LENGTH,...`` (a smaller run), ``--device`` (cuda
+by default; cpu runs the same code on the host), ``--work DIR`` (kept, with
+the data, for further runs; by default a temporary directory, removed at
+the end).
+"""
+
+from __future__ import annotations
+
+import argparse
+import gzip
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+GRCH38 = "chr20:64444167,chr21:46709983"
+COVERAGE = 20.0
+SEED = 5
+
+
+def _read(path: str) -> bytes:
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        return f.read()
+
+
+def _artifacts(out: str) -> list[str]:
+    return ["snp_calling/pileup.vcf.gz", "sv_calling/variants.vcf",
+            "phased_sv.vcf"] + [
+        f"snp_phasing/{n}"
+        for n in sorted(os.listdir(os.path.join(out, "snp_phasing")))]
+
+
+def _card() -> str | None:
+    try:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, check=True)
+    except (OSError, subprocess.CalledProcessError):
+        return None
+    return smi.stdout.strip().splitlines()[0]
+
+
+def _run(data: str, out: str, device: str, *flags: str) -> dict:
+    cmd = [sys.executable, "-m", "duet_tpu_torch",
+           os.path.join(data, "reads.bam"), os.path.join(data, "ref.fa"),
+           out, "--device", device, "--device-stages", "on", *flags]
+    t = time.perf_counter()
+    subprocess.run(cmd, check=True, stdout=subprocess.DEVNULL)
+    wall = time.perf_counter() - t
+    with open(os.path.join(out, "metrics.json")) as f:
+        m = json.load(f)
+    ingest = m["ingest_backend"] if "ingest_backend" in m \
+        else m["ingest"]["backend"]
+    return {"wall_s": wall, "total_s": m["total_s"], "stages": m["stages"],
+            "peak_rss_mb": m["peak_rss_mb"],
+            "stage_peak_rss_mb": m.get("stage_peak_rss_mb"),
+            "ingest": ingest, "reads": m["counts"]["reads"],
+            "snp_sites": m["counts"]["snp_sites"],
+            "backends": m["backends"],
+            "device_cost_haplotag": m["device_cost"].get("haplotag")}
+
+
+def main(argv: list[str] | None = None) -> int:
+    p = argparse.ArgumentParser(prog="python -m duet_tpu_torch.stream_scale")
+    p.add_argument("--contigs", default=GRCH38)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--work", default=None)
+    args = p.parse_args(argv)
+
+    from duet_tpu_torch.sim import SimConfig, simulate_dataset
+
+    contigs = {name: int(length) for name, length in
+               (c.split(":") for c in args.contigs.split(","))}
+    work = args.work or tempfile.mkdtemp(prefix="duet_stream_scale_")
+    try:
+        data = os.path.join(work, "data")
+        t = time.perf_counter()
+        simulate_dataset(data, SimConfig(contigs=contigs, coverage=COVERAGE,
+                                         seed=SEED))
+        sim_s = time.perf_counter() - t
+        print(f"[sim] {contigs} at {COVERAGE}x (seed {SEED}) in "
+              f"{sim_s:.1f} s", flush=True)
+        runs = {}
+        for name, flags in (("batch", ()), ("stream", ("--stream",))):
+            runs[name] = _run(data, os.path.join(work, name), args.device,
+                              *flags)
+            print(f"[{name}] {json.dumps(runs[name])}", flush=True)
+        batch, stream = (os.path.join(work, n) for n in ("batch", "stream"))
+        if _artifacts(batch) != _artifacts(stream):
+            raise AssertionError("the runs wrote different snp_phasing/ files")
+        for name in _artifacts(batch):
+            if _read(os.path.join(batch, name)) != \
+                    _read(os.path.join(stream, name)):
+                raise AssertionError(f"{name} differs between batch and "
+                                     "stream")
+        print(json.dumps({"card": _card(), "contigs": contigs,
+                          "coverage": COVERAGE, "seed": SEED,
+                          "sim_s": sim_s, "identical_artifacts":
+                          len(_artifacts(batch)), **runs}))
+    finally:
+        if args.work is None:
+            shutil.rmtree(work, ignore_errors=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

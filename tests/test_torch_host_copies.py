@@ -1,8 +1,11 @@
 """The port's copies of duet_tpu's host layers, held against the originals
 on the CPU: the simulator writes the same bytes, the readers build the same
-read store, the VCF parsers read duet_tpu's files into the same records, the
-VCF writers write duet_tpu's bytes from the same content, and the module
-constants, config defaults, CLI flags and shipped weights are equal.
+read store (the native one from the port's zlib build of the ingest source
+against duet_tpu's build), the VCF parsers read duet_tpu's files into the
+same records, the VCF writers write duet_tpu's bytes from the same content,
+and the module constants, config defaults, CLI flags and shipped weights
+are equal.  The port's ingest source differs from the shared one only in
+its inflate, and both native readers reject a corrupt BGZF member.
 
 The port's dataclasses are classes of their own, so objects cross packages
 field by field (``_as``) and are compared field by field."""
@@ -102,6 +105,80 @@ def test_read_store_equal(sim_dataset, reader):
     assert list(got.contigs) == list(want.contigs)
     for c in want.contigs:
         _same_fields(got.contigs[c], want.contigs[c])
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the three places where the port's ingest source may differ from
+# native/duet_ingest.cc: the inflate library's include, inflate_block with
+# the comment above it, and the inflate worker of the thread pool
+INFLATE_REGIONS = (
+    (r"#include <(libdeflate|zlib)\.h>\n", "<include>\n"),
+    (r"(//[^\n]*\n)+bool inflate_block\(.*?\n}\n", "<inflate_block>\n"),
+    (r"pool\.emplace_back\(\[&, t\]\(\) \{\n.*?\n {8}\}\);\n",
+     "<worker>\n"),
+)
+
+
+def _outside_inflate(text):
+    import re
+
+    for pattern, mark in INFLATE_REGIONS:
+        text, n = re.subn(pattern, mark, text, flags=re.S)
+        assert n == 1, pattern
+    return text
+
+
+def test_ingest_source_is_the_shared_one_but_for_its_inflate():
+    with open(os.path.join(REPO, "native", "duet_ingest.cc")) as f:
+        want = f.read()
+    with open(os.path.join(REPO, "duet_tpu_torch", "csrc",
+                           "duet_ingest.cc")) as f:
+        got = f.read()
+    assert got != want
+    assert _outside_inflate(got) == _outside_inflate(want)
+
+
+def test_ingest_build_names_no_libdeflate():
+    from duet_tpu_torch.io import native_ingest as t_native
+
+    with open(t_native._SRC) as f:
+        src = f.read()
+    assert t_native._SRC == os.path.join(REPO, "duet_tpu_torch", "csrc",
+                                         "duet_ingest.cc")
+    assert "deflate" not in src.lower().replace("inflate", "")
+    assert "#include <zlib.h>" in src
+    assert not [f for f in t_native._LDFLAGS if "deflate" in f]
+    assert "-lz" in t_native._LDFLAGS
+
+
+def _first_member(data: bytes) -> tuple[int, int]:
+    """(header length, BSIZE) of the BGZF member at the start of data."""
+    import struct
+
+    xlen = struct.unpack("<H", data[10:12])[0]
+    return 12 + xlen, struct.unpack("<H", data[16:18])[0] + 1
+
+
+@pytest.mark.parametrize("where", ["magic", "deflate", "crc32", "isize"])
+def test_native_ingest_rejects_a_corrupt_member(sim_dataset, tmp_path, where):
+    """A BAM whose first BGZF member is corrupt fails in both packages'
+    native readers, with the reader's BGZF errors: the zlib inflate keeps
+    the gzip trailer's CRC32 and ISIZE checks."""
+    from duet_tpu.io import native_ingest as j_native
+    from duet_tpu_torch.io import native_ingest as t_native
+
+    with open(os.path.join(sim_dataset[0], "reads.bam"), "rb") as f:
+        data = bytearray(f.read())
+    head, bsize = _first_member(data)
+    at = {"magic": 0, "deflate": head + (bsize - 8 - head) // 2,
+          "crc32": bsize - 8, "isize": bsize - 4}[where]
+    data[at] ^= 0x5A
+    bad = tmp_path / "bad.bam"
+    bad.write_bytes(bytes(data))
+    for native in (j_native, t_native):
+        with pytest.raises(ValueError,
+                           match="invalid BGZF stream|BGZF inflate failed"):
+            native.load_read_store_native(str(bad))
 
 
 @pytest.fixture(scope="module")

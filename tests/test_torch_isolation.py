@@ -1,8 +1,8 @@
 """The torch port stands alone: no module of ``duet_tpu_torch`` nor
 ``chip_smoke.py`` imports the JAX package ``duet_tpu``, and a fresh
 interpreter that refuses duet_tpu and JAX simulates a dataset, runs the CLI
-end to end under --device-stages on and off, and imports the bench and the
-smoke script."""
+end to end under --device-stages on and off and with --stream, and imports
+the bench and the smoke script."""
 
 import ast
 import glob
@@ -38,12 +38,15 @@ def test_no_import_of_duet_tpu(path):
     assert not bad, f"{path} imports the JAX package: {bad}"
 
 
-@pytest.mark.parametrize("mode", ["on", "off"])
+@pytest.mark.parametrize("mode", ["on", "off", "stream"])
 def test_cli_runs_with_duet_tpu_refused(tmp_path, mode):
     """The import system refuses duet_tpu, jax, jaxlib, ml_dtypes and
-    optax; the port's simulator, CLI, bench and chip_smoke.py still work."""
+    optax; the port's simulator, CLI (batch under on and off, and --stream
+    under on), bench and chip_smoke.py still work."""
     data = str(tmp_path / "data")
     out = str(tmp_path / "out")
+    flags = ["--device-stages", "on", "--stream"] if mode == "stream" \
+        else ["--device-stages", mode]
     script = textwrap.dedent(f"""
         import importlib.abc, runpy, sys
         BLOCKED = ("duet_tpu", "jax", "jaxlib", "ml_dtypes", "optax")
@@ -62,7 +65,7 @@ def test_cli_runs_with_duet_tpu_refused(tmp_path, mode):
         import duet_tpu_torch.bench
         sys.argv = ["duet_tpu_torch", {data!r} + "/reads.bam",
                     {data!r} + "/ref.fa", {out!r}, "--device", "cpu",
-                    "--device-stages", {mode!r}, "-t", "2"]
+                    *{flags!r}, "-t", "2"]
         try:
             runpy.run_module("duet_tpu_torch", run_name="__main__",
                              alter_sys=True)

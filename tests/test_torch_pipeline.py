@@ -1,7 +1,8 @@
 """The torch port's batch pipeline end to end: byte-identical artifacts
 against duet_tpu's run_pipeline under --device-stages on and off, a run
 that never imports jax (in a subprocess, since this test process has jax
-loaded), and the refusals of the modes not ported yet."""
+loaded), and the refusals of the modes not ported yet (--stream, --resume
+and --phase-only are held against duet_tpu in test_torch_modes.py)."""
 
 import gzip
 import json
@@ -113,10 +114,8 @@ def test_cli_run_imports_no_jax(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--stream"], ["--phase-only"], ["--resume"], ["--mesh", "1,1"],
-    ["--coordinator", "localhost:1234"], ["--num-processes", "2",
-                                          "--process-id", "0"],
-    ["--profile"],
+    ["--mesh", "1,1"], ["--coordinator", "localhost:1234"],
+    ["--num-processes", "2", "--process-id", "0"], ["--profile"],
 ])
 def test_unported_modes_refuse(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="not ported"):
