@@ -43,7 +43,22 @@ together).  Phases, each printing one line:
                 tables: the same phased_sv.vcf;
   [flags]       --snp-model nn --haplotag-bam under on and under off: every
                 artifact byte-identical, the haplotagged BAMs included;
-  [bench]       `python -m duet_tpu_torch.bench`'s full run in process.
+  [bench]       `python -m duet_tpu_torch.bench`'s full run in process;
+  [mesh]        the (dp, sp) mesh as logical shards of card 0: the sharded
+                phase-and-tag (2 x 2 and 1 x 4, sweeps 0 and 2) against the
+                single-device phase_and_tag, the sharded clustering (sp = 4)
+                against cluster_host on the smoke's signatures, the sharded
+                pileup (sp = 4) against the host caller on both contigs,
+                phase_contig on a 2 x 2 mesh against the single-device
+                tagging on both contigs, then --mesh 1,1, --mesh auto and --stream --mesh 1,1 through
+                the CLI under on (and --mesh N,1 with N > 1 cards), each
+                byte-identical to the batch run with its pileup, clustering
+                and scoring on the mesh;
+  [profile]     --profile under on: byte-identical artifacts, a trace with
+                CUDA kernel events, and the device idle share;
+  [multiprocess]  two processes on card 0 joined by torch.distributed (gloo)
+                at a local coordinator, each owning one contig: pileup,
+                variants and phased_sv byte-identical to the batch run.
 
 Every comparison of a kernel with its plain version is exact (torch.equal).
 Times are medians of CUDA-event timed launches taken in turns (plain,
@@ -52,8 +67,10 @@ its bytes over the card's memory rate and its operations over the peak
 rate for their type) and one PyTorch library call on the same inputs (a
 float32 cuBLAS product; the port never calls it).
 Each path (the pipeline on, the stream, the resume, haplotag_score, the
-bench) runs with the launch counts set to 0 just before it and read just
-after, and fails if a kernel of that path never launched.  Any failure
+bench, --profile, each process of the multi-process run) runs with the
+launch counts set to 0 just before it and read just after, and fails if a
+kernel of that path never launched.  The mesh path launches none: as in
+duet_tpu, its products are plain matmuls outside any kernel.  Any failure
 exits non-zero.  The second-to-last line is one JSON object describing the
 kernels; the last is {"ok": true, "device": {...}}.
 """
@@ -743,7 +760,9 @@ def phase_pipeline_on(report: dict, data: str, work: str) -> None:
     from duet_tpu_torch.ops import haplotag_kernel
 
     _reset_launches()
+    t = time.perf_counter()
     metrics = _run_cli(data, os.path.join(work, "on"), "on")
+    report["pipeline_on_wall"] = time.perf_counter() - t
     counts = dict(haplotag_kernel.LAUNCHES)
     report["launches"] = counts["haplotag_score"]
     _all_on_device(metrics, "the pipeline")
@@ -753,7 +772,8 @@ def phase_pipeline_on(report: dict, data: str, work: str) -> None:
                              f"{metrics['ingest']['backend']}, not native")
     report["pipeline_on"] = metrics
     print(f"[pipeline on] backends all device, haplotag_score launches "
-          f"{report['launches']}, ingest {metrics['ingest']['backend']}, "
+          f"{report['launches']}, wall {report['pipeline_on_wall']:.2f} s, "
+          f"ingest {metrics['ingest']['backend']}, "
           f"reads {metrics['counts']['reads']}, snp sites "
           f"{metrics['counts']['snp_sites']}, tagged reads "
           f"{metrics['counts']['tagged_reads']}, total "
@@ -974,6 +994,297 @@ def phase_bench(report: dict) -> None:
     print(f"[bench] launches {json.dumps(counts)} | {line}", flush=True)
 
 
+def _smoke_signatures(store):
+    """(contig, svtype, pos, length, read_idx) of every SV type of every
+    contig: the CIGAR and split-read signatures the SV caller clusters."""
+    from duet_tpu_torch.models.sv_caller_host import (
+        SvCallConfig,
+        contig_tables,
+        extract_signatures,
+        extract_split_signatures,
+    )
+
+    cfg = SvCallConfig()
+    for contig, cr in store.contigs.items():
+        cig = extract_signatures(cr, cfg)
+        spl = extract_split_signatures(cr, cfg, contig_tables(cr, cfg))
+        svtype = np.concatenate([cig.svtype, spl.svtype])
+        pos = np.concatenate([cig.pos, spl.pos])
+        length = np.concatenate([cig.length, spl.length])
+        reads = np.concatenate([cig.read_idx, spl.read_idx])
+        for t in range(4):
+            m = svtype == t
+            yield contig, t, pos[m], length[m], reads[m]
+
+
+def _mesh_cli(data: str, work: str, name: str, want: dict,
+              *flags: str) -> str:
+    """One CLI run under a mesh: byte-identical to the batch run, with its
+    pileup, clustering and scoring on the mesh; returns its summary."""
+    from duet_tpu_torch.ops import haplotag_kernel
+
+    _reset_launches()
+    t = time.perf_counter()
+    metrics = _run_cli(data, os.path.join(work, name), "on", *flags)
+    wall = time.perf_counter() - t
+    counts = dict(haplotag_kernel.LAUNCHES)
+    n = _compare_artifacts(os.path.join(work, name), os.path.join(work, "on"))
+    off_mesh = {s: metrics["backends"][s] for s in
+                ("snp_pileup", "sv_cluster", "haplotag")
+                if metrics["backends"][s] != "mesh"}
+    if off_mesh:
+        raise AssertionError(f"{' '.join(flags)}: not on the mesh: {off_mesh}")
+    if "--stream" not in flags and metrics.get("mesh") != want:
+        raise AssertionError(f"{' '.join(flags)}: metrics mesh "
+                             f"{metrics.get('mesh')}, expected {want}")
+    return (f"{' '.join(flags)}: {n} artifacts byte-identical, wall "
+            f"{wall:.2f} s, total {metrics['total_s']} s, stages "
+            f"{json.dumps(metrics['stages'])}, backends "
+            f"{json.dumps(metrics['backends'])}, hand-kernel launches "
+            f"{sum(counts.values())}")
+
+
+def phase_mesh(report: dict, data: str, work: str) -> None:
+    """The mesh's sharded functions on logical shards of card 0 against
+    their single-device and host twins, then the CLI under --mesh."""
+    import torch
+
+    from duet_tpu_torch.io.fasta import FastaFile
+    from duet_tpu_torch.io.native_ingest import load_read_store_native
+    from duet_tpu_torch.models.snp_caller import call_contig_snps
+    from duet_tpu_torch.models.snp_caller_host import SnpCallConfig
+    from duet_tpu_torch.models.snp_phaser import phase_contig
+    from duet_tpu_torch.models.sv_caller_host import SvCallConfig
+    from duet_tpu_torch.ops.cluster import GAP, cluster_host
+    from duet_tpu_torch.ops.haplotag import phase_and_tag
+    from duet_tpu_torch.parallel import (cluster_sharded, make_mesh,
+                                         phase_and_tag_sharded)
+    from duet_tpu_torch.parallel.shard_pileup import call_snps_sharded
+    from duet_tpu_torch.utils import dispatch
+
+    t0 = time.perf_counter()
+    card = torch.device("cuda", 0)
+    keys = ("hap", "pc", "best_block", "phase")
+    a, w, _, p, oh = _cuda(*bench_inputs())
+    timing = {}
+    for dp, sp in ((2, 2), (1, 4)):
+        mesh = make_mesh(dp, sp, [card] * 4)
+        for sweeps in (0, 2):
+            got = phase_and_tag_sharded(mesh, a, w, p, oh, sweeps)
+            want = phase_and_tag(a, w, p, oh, sweeps)
+            _require_equal(got, [want[k] for k in keys], keys,
+                           f"phase_and_tag_sharded {dp}x{sp} sweeps {sweeps}")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        phase_and_tag_sharded(mesh, a, w, p, oh, 2)
+        torch.cuda.synchronize()
+        timing[f"{dp}x{sp}"] = time.perf_counter() - t
+
+    mesh14 = make_mesh(1, 4, [card] * 4)
+    store = load_read_store_native(os.path.join(data, "reads.bam"),
+                                   n_threads=min(4, os.cpu_count() or 1))
+    cfg = SvCallConfig()
+    n_sigs = n_clusters = 0
+    for contig, svtype, pos, length, reads in _smoke_signatures(store):
+        max_dist = cfg.max_dist_ins if svtype == 0 else cfg.max_dist_del
+        args = (pos, length, reads, GAP, max_dist, 9, 10)
+        got, want = cluster_sharded(mesh14, *args), cluster_host(*args)
+        for name, g, x in zip(("call_pos", "call_len", "support", "count",
+                               "seg"), got, want):
+            if not np.array_equal(g, x):
+                raise AssertionError(f"cluster_sharded != cluster_host on "
+                                     f"{contig} type {svtype}: {name}")
+        n_sigs += len(pos)
+        n_clusters += len(got[0])
+
+    ref = FastaFile(os.path.join(data, "ref.fa"))
+    snp_cfg = SnpCallConfig(model="counts")
+    n_sites = 0
+    called = {}
+    for contig, cr in store.contigs.items():
+        codes = ref.fetch_codes(contig)
+        got = call_snps_sharded(mesh14, contig, cr, codes, snp_cfg)
+        want, obs = call_contig_snps(contig, cr, codes, snp_cfg)
+        for f in ("pos", "alt_code", "is_het", "depth", "alt_count"):
+            if not np.array_equal(getattr(got, f), getattr(want, f)):
+                raise AssertionError(f"call_snps_sharded != host caller on "
+                                     f"{contig}: {f}")
+        n_sites += len(got.pos)
+        called[contig] = (cr, want, obs)
+
+    # the pipeline's mesh scorer (_haplotag_device's chunks of 256 * dp
+    # rows, S_w a multiple of sp) on a 2 x 2 mesh of card 0, against the
+    # single-device scorer (the hand kernel) on the same contig
+    mesh22 = make_mesh(2, 2, [card] * 4)
+    mesh_chunks = n_tagged = 0
+    for contig, (cr, snps, obs) in called.items():
+        single = phase_contig(cr, snps, snp_cfg, use_device=True, obs=obs,
+                              device=card)
+        before = dispatch.snapshot().get("haplotag", {}).get("mesh", 0)
+        sharded = phase_contig(cr, snps, snp_cfg, use_device=True, obs=obs,
+                               mesh=mesh22)
+        mesh_chunks += (dispatch.snapshot().get("haplotag", {}).get("mesh", 0)
+                        - before)
+        for f in ("phase", "block_id", "block_ps", "read_hap", "read_ps",
+                  "read_pc"):
+            if not np.array_equal(getattr(sharded, f), getattr(single, f)):
+                raise AssertionError(f"phase_contig on the 2x2 mesh != the "
+                                     f"single-device tagging on {contig}: "
+                                     f"{f}")
+        n_tagged += int((sharded.read_hap != 0).sum())
+    if mesh_chunks == 0 or n_tagged == 0:
+        raise AssertionError(f"phase_contig on the 2x2 mesh scored "
+                             f"{mesh_chunks} chunks, tagged {n_tagged} reads")
+    funcs_s = time.perf_counter() - t0
+
+    n = torch.cuda.device_count()
+    auto_sp = 2 if n % 2 == 0 and n >= 4 else 1      # the pipeline's rule
+    runs = [_mesh_cli(data, work, "mesh11", {"dp": 1, "sp": 1},
+                      "--mesh", "1,1"),
+            _mesh_cli(data, work, "mesh_auto",
+                      {"dp": n // auto_sp, "sp": auto_sp}, "--mesh", "auto"),
+            _mesh_cli(data, work, "mesh_stream", {"dp": 1, "sp": 1},
+                      "--stream", "--mesh", "1,1")]
+    if n > 1:
+        runs.append(_mesh_cli(data, work, "mesh_n1", {"dp": n, "sp": 1},
+                              "--mesh", f"{n},1"))
+    print(f"[mesh] logical shards of {report['card']}: phase_and_tag_sharded "
+          f"== phase_and_tag ({TOLERANCE} and int8 phase) at R={a.shape[0]}, "
+          f"S={a.shape[1]}, meshes 2x2 and 1x4, sweeps 0 and 2 (one sweeps-2 "
+          f"call: {json.dumps({k: round(v, 4) for k, v in timing.items()})} "
+          f"s); cluster_sharded (1x4) == cluster_host on {n_sigs} smoke "
+          f"signatures ({n_clusters} clusters, 2 contigs x 4 types); "
+          f"call_snps_sharded (1x4) == the host caller on "
+          f"{len(store.contigs)} contigs ({n_sites} sites); phase_contig "
+          f"on a 2x2 mesh == the single-device tagging on "
+          f"{len(called)} contigs ({mesh_chunks} mesh chunks, {n_tagged} "
+          f"reads tagged); functions "
+          f"{funcs_s:.1f} s; {torch.cuda.device_count()} card(s) visible; "
+          f"CLI: {' | '.join(runs)}", flush=True)
+
+
+def _device_busy(events: list) -> tuple[float, float]:
+    """(union of the GPU kernel, memcpy and memset intervals, the traced
+    window), in microseconds, from a Chrome trace's events."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        if hi <= end:
+            continue
+        busy += hi - max(lo, end)
+        end = hi
+    timed = [e for e in events if "ts" in e and "dur" in e]
+    window = max(e["ts"] + e["dur"] for e in timed) - \
+        min(e["ts"] for e in timed)
+    return busy, window
+
+
+def phase_profile(report: dict, data: str, work: str) -> None:
+    """--profile under on: the artifacts of the batch run, a trace that
+    loads as JSON and holds CUDA kernel events, and the device idle share
+    of the run."""
+    from duet_tpu_torch.ops import haplotag_kernel
+
+    out = os.path.join(work, "profile")
+    _reset_launches()
+    t = time.perf_counter()
+    metrics = _run_cli(data, out, "on", "--profile")
+    wall = time.perf_counter() - t
+    counts = dict(haplotag_kernel.LAUNCHES)
+    _require_launches(counts, ["haplotag_score"], "the profiled pipeline")
+    n = _compare_artifacts(out, os.path.join(work, "on"))
+    path = os.path.join(out, "profile", "trace.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        raise AssertionError("the --profile trace holds no CUDA kernel event")
+    names = {e["name"] for e in kernels}
+    if not any("haplotag_score_kernel" in k for k in names):
+        raise AssertionError(f"haplotag_score_kernel is not in the trace: "
+                             f"{sorted(names)[:20]}")
+    busy, window = _device_busy(events)
+    report["profile"] = {"idle_share": 1.0 - busy / window, "wall_s": wall,
+                         "busy_ms": busy / 1e3, "window_ms": window / 1e3}
+    print(f"[profile] --profile under on: {n} artifacts byte-identical to the "
+          f"batch run; trace {os.path.getsize(path)} bytes, {len(events)} "
+          f"events, {len(kernels)} kernel events of {len(names)} kernels; "
+          f"device busy {busy / 1e3:.2f} ms of a {window / 1e3:.2f} ms traced "
+          f"window: idle share {report['profile']['idle_share']:.6f}; "
+          f"haplotag_score launches {counts['haplotag_score']}; wall "
+          f"{wall:.2f} s (unprofiled [pipeline on] {report['pipeline_on_wall']:.2f}"
+          f" s), total {metrics['total_s']} s (unprofiled "
+          f"{report['pipeline_on']['total_s']} s), stages "
+          f"{json.dumps(metrics['stages'])} on {report['card']}", flush=True)
+
+
+# run in each process of [multiprocess]: the CLI, then the launch counts
+_CLI_WITH_LAUNCHES = (
+    "import json, sys\n"
+    "from duet_tpu_torch.cli import main\n"
+    "from duet_tpu_torch.ops import haplotag_kernel\n"
+    "rc = main(sys.argv[1:])\n"
+    "print('LAUNCHES ' + json.dumps(haplotag_kernel.LAUNCHES), flush=True)\n"
+    "sys.exit(rc)\n")
+
+
+def phase_multiprocess(report: dict, data: str, work: str) -> None:
+    """Two processes on card 0, joined by torch.distributed (gloo) at a
+    local coordinator: each ingests and calls the contig it owns and
+    scores it with haplotag_score; process 0 merges the parts."""
+    import socket
+
+    out = os.path.join(work, "multiprocess")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{sock.getsockname()[1]}"
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _CLI_WITH_LAUNCHES,
+         os.path.join(data, "reads.bam"), os.path.join(data, "ref.fa"), out,
+         "--device-stages", "on", "--coordinator", addr,
+         "--num-processes", "2", "--process-id", str(pid)],
+        cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for pid in (0, 1)]
+    try:
+        results = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t
+    launches = []
+    for pid, (p, (stdout, stderr)) in enumerate(zip(procs, results)):
+        if p.returncode != 0:
+            raise AssertionError(f"process {pid} exited {p.returncode}: "
+                                 f"{stderr[-3000:]}")
+        line = [ln for ln in stdout.splitlines() if ln.startswith("LAUNCHES ")]
+        counts = json.loads(line[-1].split(" ", 1)[1])
+        _require_launches(counts, ["haplotag_score"], f"process {pid}")
+        launches.append(counts["haplotag_score"])
+    for name in ("snp_calling/pileup.vcf.gz", "sv_calling/variants.vcf",
+                 "phased_sv.vcf"):
+        if _read(os.path.join(out, name)) != \
+                _read(os.path.join(work, "on", name)):
+            raise AssertionError(f"multi-process {name} differs from the "
+                                 f"batch run's")
+    metrics = []
+    for name in ("metrics.json", "metrics.p1.json"):
+        with open(os.path.join(out, name)) as f:
+            metrics.append(json.load(f))
+    report["multiprocess_launches"] = launches
+    print(f"[multiprocess] 2 processes at {addr} (gloo) on {report['card']}: "
+          f"pileup.vcf.gz, variants.vcf and phased_sv.vcf byte-identical to "
+          f"the batch run; haplotag_score launches per process {launches}; "
+          f"wall {wall:.2f} s; process totals "
+          f"{[m['total_s'] for m in metrics]} s, contigs "
+          f"{[m['counts']['contigs'] for m in metrics]}, stages "
+          f"{json.dumps([m['stages'] for m in metrics])}", flush=True)
+
+
 KERNELS = [
     # name, source, replaces, the report entry with its times
     ("haplotag_score", "duet_tpu_torch/csrc/haplotag_score.cu",
@@ -1014,6 +1325,9 @@ def main() -> int:
         phase_phase_only(report, work)
         phase_flags(report, data, work)
         phase_bench(report)
+        phase_mesh(report, data, work)
+        phase_profile(report, data, work)
+        phase_multiprocess(report, data, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if "jax" in sys.modules:

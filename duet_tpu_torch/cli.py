@@ -1,21 +1,21 @@
 """Command-line entry point: `duet-tpu-torch <BAM> <REFERENCE.fa> <OUTPUT_DIR>`.
 
-The flag set of ``duet-tpu`` (a copy of its parser, help texts included)
-plus ``--device {cuda,cpu}``, the explicit device of the port's device
-routes (default cuda).  The batch run, --resume, --stream and --phase-only
-run as in duet-tpu; the modes the port does not run yet — --mesh,
---profile and multi-process runs — raise NotImplementedError instead of
-being ignored.
+The flag set of ``duet-tpu`` (a copy of its parser, help texts included
+but for --profile's and --coordinator's, which name torch's tools) plus
+``--device {cuda,cpu}``, the explicit device of the port's device routes
+(default cuda).  Every mode of duet-tpu runs: the batch run, --resume,
+--stream, --phase-only, --mesh, multi-process runs and --profile, which
+records the run with torch.profiler into OUTPUT/profile/.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 from duet_tpu_torch.pipeline import (
     PipelineConfig,
-    _not_ported,
     run_phase_only,
     run_pipeline,
     run_pipeline_streaming,
@@ -113,14 +113,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="also write per-contig haplotagged BAMs with "
                         "HP/PC/PS tags (reference artifact parity)")
     p.add_argument("--profile", action="store_true",
-                   help="capture a JAX profiler trace of the run into "
-                        "OUTPUT/profile/ (view with TensorBoard or Perfetto)")
+                   help="capture a torch.profiler trace of the run into "
+                        "OUTPUT/profile/ (Chrome trace JSON: view with "
+                        "Perfetto or chrome://tracing)")
     mh = p.add_argument_group(
         "multi-host", "run one process per host against a shared OUTPUT dir: "
         "contigs are round-robin owned, stage outputs exchanged as part "
         "files, process 0 writes the final artifacts")
     mh.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                    help="jax.distributed coordinator address (process 0's)")
+                    help="torch.distributed (gloo) rendezvous address "
+                         "(process 0's)")
     mh.add_argument("--num-processes", type=int, default=None)
     mh.add_argument("--process-id", type=int, default=None)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -132,8 +134,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    if args.profile:
-        raise _not_ported("--profile", "4")
     cfg = PipelineConfig(
         bam=args.BAM,
         reference=args.REFERENCE,
@@ -161,7 +161,43 @@ def main(argv: list[str] | None = None) -> int:
         process_id=args.process_id,
         device=args.device,
     )
-    return _dispatch(args, cfg)
+    if not args.profile:
+        return _dispatch(args, cfg)
+    return _profiled(args, cfg)
+
+
+def _profiled(args, cfg: PipelineConfig) -> int:
+    """The run under torch.profiler — CPU activity, and CUDA activity when
+    the run's device is a card — with the Chrome trace written to
+    OUTPUT/profile/trace.json (trace.p{pid}.json on process pid > 0, as
+    the logs are named), also when the run raises.  The whole run is
+    recorded, without shapes or stacks, so the trace stays small at
+    chromosome scale."""
+    from torch.profiler import ProfilerActivity, profile
+
+    trace_dir = os.path.join(args.OUTPUT, "profile")
+    os.makedirs(trace_dir, exist_ok=True)
+    pid = cfg.process_id or 0
+    path = os.path.join(trace_dir, "trace.json" if pid == 0
+                        else f"trace.p{pid}.json")
+    activities = [ProfilerActivity.CPU]
+    if cfg.torch_device().type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities, record_shapes=False,
+                   with_stack=False)
+    try:
+        with prof:
+            code = _dispatch(args, cfg)
+    except BaseException:
+        # the run's own error wins over a failed export
+        try:
+            prof.export_chrome_trace(path)
+        except Exception as exc:
+            print(f"duet-tpu-torch: profile trace not written: {exc}",
+                  file=sys.stderr)
+        raise
+    prof.export_chrome_trace(path)
+    return code
 
 
 def _dispatch(args, cfg: PipelineConfig) -> int:

@@ -264,14 +264,32 @@ def call_contig_snps(contig: str, cr, ref_codes: np.ndarray,
     return snps, filter_observations_to_sites(*obs, snps.pos)
 
 
+def mesh_pileup_ok(cfg: SnpCallConfig) -> bool:
+    """Mirrors ``duet_tpu.models.snp_caller.mesh_pileup_ok``: the
+    coordinate-sharded pileup implements the counting rule ('auto'
+    resolves to it on a mesh); the nn stays on its own route.  One
+    predicate for the batch and streaming call sites."""
+    return cfg.model in ("counts", "auto")
+
+
 def call_snps_for_store(store: ReadStore, ref_codes: dict[str, np.ndarray],
                         cfg: SnpCallConfig | None = None, threads: int = 1,
                         device: torch.device = _CPU,
-                        nn_device: torch.device = _CPU):
-    """Mirrors ``duet_tpu.models.snp_caller.call_snps_for_store`` without
-    the mesh branch: (snps_by_contig, site_obs_by_contig)."""
+                        nn_device: torch.device = _CPU, mesh=None):
+    """Mirrors ``duet_tpu.models.snp_caller.call_snps_for_store``:
+    (snps_by_contig, site_obs_by_contig).  With `mesh`, each contig's
+    coordinate axis shards over the mesh's sp axis
+    (``parallel.shard_pileup``), whatever cfg.device says."""
     cfg = cfg or SnpCallConfig()
     work = [(c, cr) for c, cr in store.contigs.items() if c in ref_codes]
+    if mesh is not None and mesh_pileup_ok(cfg):
+        from duet_tpu_torch.parallel.shard_pileup import call_snps_sharded
+
+        snps_out = {c: call_snps_sharded(mesh, c, cr, ref_codes[c], cfg)
+                    for c, cr in work}
+        obs_out = {c: _at_site_obs(cr, cfg, snps_out[c].pos)
+                   for c, cr in work}
+        return snps_out, obs_out
     if cfg.device and cfg.model in ("counts", "auto") and len(work) > 1:
         snps_out = call_snps_device_grouped(
             [(c, cr, ref_codes[c]) for c, cr in work], cfg, device=device)

@@ -14,6 +14,10 @@ chosen by ``HAPLOTAG_DEVICE_MODE``:
   scatter scorer ``ops.sparse_power.haplotag_score_sparse_multi``, one
   launch for a batch of contigs.
 
+Under a device mesh (``phase_contig(mesh=...)``) the dense windows go to
+the sharded ``parallel.mesh.phase_and_tag_sharded`` instead, as in
+duet_tpu, whose mesh route runs no Pallas kernel either.
+
 Both are pinned bit-identical to the host scorer ``_haplotag``.
 """
 
@@ -66,13 +70,15 @@ def _haplotag_sparse_device(am: AlleleMatrix, phase: np.ndarray,
 
 def _haplotag_device(am: AlleleMatrix, phase: np.ndarray,
                      block_id: np.ndarray, block_ps: np.ndarray,
-                     window: int = 2048, halo: int = 256,
+                     window: int = 2048, halo: int = 256, mesh=None,
                      batch: int = HAPLOTAG_BATCH, mode: str | None = None,
                      device: torch.device = _CPU):
-    """Device read scoring (K1); mirrors the single-device branches of
+    """Device read scoring (K1); mirrors
     ``duet_tpu.models.snp_phaser._haplotag_device``.  `mode` (default
     HAPLOTAG_DEVICE_MODE) picks the sparse COO scorer or the dense windowed
-    route below.
+    route below.  With `mesh` every window chunk goes through the
+    mesh-sharded ``parallel.mesh.phase_and_tag_sharded`` instead: rows over
+    dp (256 per shard), sites over sp, psums on both axes.
 
     Sites split into windows of `window` columns plus a `halo` overlap;
     each read is scored in the window of its first observation.  Reads
@@ -80,12 +86,22 @@ def _haplotag_device(am: AlleleMatrix, phase: np.ndarray,
     phase-set blocks, take the host scorer, so outputs equal _haplotag.
     Chunks are flushed `batch` at a time as ONE kernel launch of the fixed
     shape (batch*256, S_w), with alleles int8 and weights / rhs built
-    directly as bfloat16."""
+    directly as bfloat16.  On the mesh a window keeps its reads whatever
+    its block count, its block table is sized to a power of two, and
+    each chunk is one sharded call."""
     from duet_tpu_torch.ops.haplotag_kernel import haplotag_score_batch
     from duet_tpu_torch.utils import devcost, dispatch
 
-    if (mode or HAPLOTAG_DEVICE_MODE) == "sparse":
-        return _haplotag_sparse_device(am, phase, block_id, block_ps, device)
+    if mesh is not None:
+        from duet_tpu_torch.parallel.mesh import phase_and_tag_sharded
+
+        dp, sp = mesh.shape["dp"], mesh.shape["sp"]
+        chunk = CHUNK * dp
+    else:
+        if (mode or HAPLOTAG_DEVICE_MODE) == "sparse":
+            return _haplotag_sparse_device(am, phase, block_id, block_ps,
+                                           device)
+        sp, chunk = 1, CHUNK
     n, m = am.n_reads, am.n_sites
     read_hap = np.zeros(n, dtype=np.int8)
     read_ps = np.full(n, -1, dtype=np.int64)
@@ -101,7 +117,9 @@ def _haplotag_device(am: AlleleMatrix, phase: np.ndarray,
     w_of_read = np.where(has_obs, first_col // window, -1)
     span_ok = has_obs & (last_col < (w_of_read + 1) * window + halo)
 
-    S_w = -(-(window + halo) // 128) * 128
+    # site axis: sp-divisible on the mesh, 128-lane-aligned on one device
+    S_w = -(-(window + halo) // sp) * sp if mesh is not None \
+        else -(-(window + halo) // 128) * 128
     K = 2 + HAPLOTAG_B
     w_of_obs = np.where(span_ok[am.row], w_of_read[am.row], -1)
     obs_order = np.argsort(w_of_obs, kind="stable")
@@ -143,24 +161,43 @@ def _haplotag_device(am: AlleleMatrix, phase: np.ndarray,
         blk = np.full(S_w, -1, dtype=np.int64)
         blk[: hi - lo] = block_id[lo:hi]
         present = np.unique(blk[blk >= 0])
-        if len(present) > HAPLOTAG_B:
+        if mesh is None and len(present) > HAPLOTAG_B:
             host_rows.append(rows)
             continue
         row_local = np.searchsorted(rows, am.row[sel])
         col_local = am.col[sel] - lo
-        R_pad = max(-(-len(rows) // CHUNK) * CHUNK, CHUNK)
+        R_pad = max(-(-len(rows) // chunk) * chunk, chunk)
         A = np.zeros((R_pad, S_w), dtype=np.int8)
         Wt = np.zeros((R_pad, S_w), dtype=np.float32)
         A[row_local, col_local] = am.allele[sel]
         Wt[row_local, col_local] = am.weight[sel]
+        # each covered site's block, as a column of the window's table
+        local_of = {int(b): i for i, b in enumerate(present)}
+        ok = np.flatnonzero(blk >= 0)
+        block_col = np.array([local_of[int(b)] for b in blk[ok]], np.int64)
+        if mesh is not None:
+            ph = np.zeros(S_w, dtype=np.float32)
+            ph[: hi - lo] = phase[lo:hi]
+            B = max(8, 1 << (max(len(present), 1) - 1).bit_length())
+            onehot = np.zeros((S_w, B), dtype=np.float32)
+            onehot[ok, block_col] = 1.0
+            for c0 in range(0, len(rows), chunk):
+                c1 = min(c0 + chunk, len(rows))
+                dispatch.record("haplotag", "mesh")
+                hap_d, pc_d, best_d, _ = phase_and_tag_sharded(
+                    mesh, A[c0:c0 + chunk], Wt[c0:c0 + chunk], ph, onehot,
+                    sweeps=0)
+                _scatter_tagged(read_hap, read_pc, read_ps, block_ps,
+                                present, rows[c0:c1],
+                                *(x.cpu().numpy()[: c1 - c0]
+                                  for x in (hap_d, pc_d, best_d)))
+            continue
         # rhs = [phase | informative | block onehot], shared by the
         # window's chunks
         rhs = np.zeros((S_w, K), dtype=np.float32)
         rhs[: hi - lo, 0] = phase[lo:hi]
         rhs[:, 1] = rhs[:, 0] != 0
-        local_of = {int(b): i for i, b in enumerate(present)}
-        ok = np.flatnonzero(blk >= 0)
-        rhs[ok, [2 + local_of[int(b)] for b in blk[ok]]] = 1.0
+        rhs[ok, 2 + block_col] = 1.0
         for c0 in range(0, len(rows), CHUNK):
             c1 = min(c0 + CHUNK, len(rows))
             tasks.append((rows[c0:c1], A[c0:c0 + CHUNK],
@@ -227,16 +264,21 @@ def phase_contig_core(cr, snps, cfg=None, sweeps: int = 2,
 
 def phase_contig(cr, snps, cfg=None, sweeps: int = 2,
                  use_device: bool = False, obs=None,
-                 min_junction_evidence: float = 0.0,
+                 min_junction_evidence: float = 0.0, mesh=None,
                  device_min_nnz: int = 0,
                  adaptive_junction_split: bool = False,
                  protect_intervals=None,
                  device: torch.device = _CPU) -> PhaseResult:
-    """Mirrors ``duet_tpu.models.snp_phaser.phase_contig`` without the
-    mesh: one contig's refine and read scoring, both on `device` when
-    use_device and the allele matrix clears `device_min_nnz` (the scoring
-    through ``_haplotag_device``, one contig at a time; the batch pipeline
-    batches it across contigs in ``score_contigs_batched``)."""
+    """Mirrors ``duet_tpu.models.snp_phaser.phase_contig``: one contig's
+    refine and read scoring, both on `device` when use_device and the
+    allele matrix clears `device_min_nnz` (the scoring through
+    ``_haplotag_device``, one contig at a time; the batch pipeline batches
+    it across contigs in ``score_contigs_batched``).  An explicit `mesh`
+    is an opt-in that drops the size gate: the refine runs on the mesh's
+    first device and the scoring on the mesh."""
+    if mesh is not None:
+        device_min_nnz = 0
+        device = mesh.devices[0][0]
     am, phase, block_id, block_ps = phase_contig_core(
         cr, snps, cfg, sweeps,
         use_device=use_device, obs=obs,
@@ -245,7 +287,7 @@ def phase_contig(cr, snps, cfg=None, sweeps: int = 2,
         adaptive_junction_split=adaptive_junction_split,
         protect_intervals=protect_intervals, device=device)
     if use_device and len(am.row) >= device_min_nnz:
-        tagging = _haplotag_device(am, phase, block_id, block_ps,
+        tagging = _haplotag_device(am, phase, block_id, block_ps, mesh=mesh,
                                    device=device)
     else:
         tagging = _haplotag(am, phase, block_id, block_ps)

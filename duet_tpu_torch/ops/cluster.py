@@ -11,9 +11,11 @@ over the segment ids, a cumsum of the break flags.
 
 The SPAN compare runs in float32 with the same IEEE operations as the numpy
 host path and the JAX kernel, so every path agrees bit for bit.
-``jnp.lexsort`` becomes two stable sorts.  ``cluster_host_multi`` and
-``pad_signatures`` are copies of the numpy functions of duet_tpu's module,
-which cannot be imported without jax.
+``jnp.lexsort`` becomes two stable sorts.  ``cluster_host``,
+``cluster_host_multi`` and ``pad_signatures`` are copies of the numpy
+functions of duet_tpu's module, which cannot be imported without jax.
+``cluster_device`` is the one-type kernel, which the JAX package uses in
+its tests only; the pipeline runs ``cluster_device_multi``.
 """
 
 from __future__ import annotations
@@ -25,6 +27,50 @@ GAP = 0
 SPAN = 1
 _POS_PAD = np.int32(2**31 - 1)
 _I32 = torch.int32
+
+
+def cluster_host(pos, length, read_idx, linkage: int, max_dist: int,
+                 cmd_num: int, cmd_den: int):
+    """Copy of ``duet_tpu.ops.cluster.cluster_host`` (numpy): one SV type's
+    clustering of position-sorted signatures.  Returns (call_pos,
+    call_len, support, count, seg_id_per_signature)."""
+    k = len(pos)
+    if k == 0:
+        e = np.zeros(0, dtype=np.int64)
+        return e, e, e, e, e
+    order = np.argsort(pos, kind="stable")
+    p, l, r = pos[order], length[order], read_idx[order]
+    if linkage == SPAN:
+        dpos = np.abs(p[1:] - p[:-1])
+        dlen = np.abs(l[1:] - l[:-1])
+        denom = np.maximum(np.maximum(l[1:], l[:-1]), 1)
+        brk = (dpos + dlen).astype(np.float32) * np.float32(cmd_den) \
+            > denom.astype(np.float32) * np.float32(cmd_num)
+    else:
+        brk = (p[1:] - p[:-1]) > max_dist
+    seg = np.zeros(k, dtype=np.int64)
+    seg[1:] = np.cumsum(brk)
+    nseg = int(seg[-1]) + 1
+
+    count = np.bincount(seg, minlength=nseg)
+    start = np.zeros(nseg, dtype=np.int64)
+    start[1:] = np.cumsum(count)[:-1]
+    med = start + (count - 1) // 2
+    call_pos = p[med]
+
+    lorder = np.lexsort((l, seg))
+    l_sorted = l[lorder]
+    call_len = l_sorted[med]
+
+    rorder = np.lexsort((r, seg))
+    rs, rr = seg[rorder], r[rorder]
+    first = np.ones(k, dtype=bool)
+    first[1:] = (rs[1:] != rs[:-1]) | (rr[1:] != rr[:-1])
+    support = np.bincount(rs, weights=first, minlength=nseg).astype(np.int64)
+
+    seg_of_input = np.empty(k, dtype=np.int64)
+    seg_of_input[order] = seg
+    return call_pos, call_len, support, count.astype(np.int64), seg_of_input
 
 
 def cluster_host_multi(svtype, pos, length, read_idx, linkage: int,
@@ -223,3 +269,50 @@ def cluster_multi(svtype, pos, length, read_idx, linkage: int, md_by_type,
     seg_of_input[order] = get("seg_of_sorted")[:k]
     return (get("call_pos")[sel], get("call_len")[sel], get("support")[sel],
             get("count")[sel], seg_of_input, get("call_type")[sel])
+
+
+def cluster_device(pos, length, read_idx, n_valid: int, linkage: int,
+                   max_dist, cmd_num: int, cmd_den: int
+                   ) -> dict[str, torch.Tensor]:
+    """One SV type's clustering over padded signature tensors; the port of
+    ``duet_tpu.ops.cluster.cluster_device``.  Sorts the first `n_valid`
+    slots by position on the device (padding after them), then cuts and
+    reduces segments.  Returns the per-slot statistics of
+    ``_segment_stats`` plus the sort ``order``."""
+    k = pos.shape[0]
+    valid = torch.arange(k, device=pos.device) < n_valid
+    key = torch.where(valid, pos, int(_POS_PAD))
+    order = torch.sort(key, stable=True).indices
+    p, l, r, v = pos[order], length[order], read_idx[order], valid[order]
+    brk = _break_flags(p[:-1], l[:-1], v[:-1], p[1:], l[1:], v[1:],
+                       linkage, max_dist, cmd_num, cmd_den)
+    zero = torch.zeros(1, dtype=_I32, device=pos.device)
+    seg = torch.cat([zero, torch.cumsum(brk.to(_I32), 0, dtype=_I32)])
+    out = _segment_stats(p, l, r, v, seg)
+    out["order"] = order
+    return out
+
+
+def cluster_device_to_host(pos, length, read_idx, linkage: int,
+                           max_dist: int, cmd_num: int, cmd_den: int,
+                           torch_device: torch.device = torch.device("cpu")):
+    """Pad, run ``cluster_device`` on `torch_device`, unpad: the return
+    contract of ``cluster_host``; the port of
+    ``duet_tpu.ops.cluster.cluster_device_to_host``."""
+    k = len(pos)
+    if k == 0:
+        e = np.zeros(0, dtype=np.int64)
+        return e, e, e, e, e
+    pad_to = max(1 << (k - 1).bit_length(), 8)
+    pp, ll, rr, n = pad_signatures(np.asarray(pos, np.int32),
+                                   np.asarray(length, np.int32),
+                                   np.asarray(read_idx, np.int32), pad_to)
+    out = cluster_device(*(torch.from_numpy(x).to(torch_device)
+                           for x in (pp, ll, rr)),
+                         n, linkage, max_dist, cmd_num, cmd_den)
+    out = {name: t.cpu().numpy() for name, t in out.items()}
+    sel = np.flatnonzero(out["is_seg"])
+    seg_of_input = np.empty(k, dtype=np.int64)
+    seg_of_input[out["order"][:k]] = out["seg_of_sorted"][:k]
+    return (out["call_pos"][sel], out["call_len"][sel], out["support"][sel],
+            out["count"][sel], seg_of_input)

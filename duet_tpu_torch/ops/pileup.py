@@ -1,7 +1,8 @@
 """Device pileup from packed reads: expand, count, call and compact sites.
 
 The port of ``duet_tpu.ops.pileup``'s ``pileup_call_packed`` /
-``_packed_impl``, ``_hist_counts`` and ``call_sites``.  Inputs are the
+``packed_window_body`` (``_packed_impl``), ``_hist_counts``,
+``pileup_counts`` and ``call_sites``.  Inputs are the
 packers' two uploads (``models.snp_caller_host``):
 
   ops4        (4, K) int32  rows [ref_start, query_start (nibble index),
@@ -73,14 +74,29 @@ def _compact(mask: torch.Tensor, size: int) -> torch.Tensor:
     return out[:size]
 
 
-def pileup_call_packed(ops4: torch.Tensor, payload_ref: torch.Tensor, *,
+def pileup_counts(positions: torch.Tensor, bases: torch.Tensor,
+                  quals: torch.Tensor, length: int,
+                  min_base_qual) -> torch.Tensor:
+    """(L, 4) int32 allele counts from flat observation arrays; the port of
+    ``duet_tpu.ops.pileup.pileup_counts``.  base >= 4 (N, and the padding
+    convention) never counts; quals below min_base_qual are dropped;
+    uint8 bases and quals widen here."""
+    keep = (bases < 4) & (quals.to(_I32) >= min_base_qual)
+    key = torch.where(keep, positions.to(_I32) * 4 + bases.to(_I32),
+                      length * 4)
+    return _hist_counts(key, length)
+
+
+def packed_window_body(ops4: torch.Tensor, payload_ref: torch.Tensor, *,
                        total: int, length: int,
                        max_sites: int) -> torch.Tensor:
-    """Expand, count, call and compact one window; returns one flat int32
-    tensor [n_sites, site_idx*max_sites, alt_code*, is_het*, depth*,
-    alt_count*].  Padding contract (host side): op rows padded so the
-    cumulative length covers `total` exactly, pad lanes masked by
-    lane < n_real."""
+    """Expand, count, call and compact ONE coordinate window; returns one
+    flat int32 tensor [n_sites, site_idx*max_sites, alt_code*, is_het*,
+    depth*, alt_count*].  Padding contract (host side): op rows padded so
+    the cumulative length covers `total` exactly, pad lanes masked by
+    lane < n_real.  The single-device caller (as ``pileup_call_packed``)
+    and the mesh's per-shard pileup (``parallel.shard_pileup``) run this
+    one function, so the sharded path is the same math by construction."""
     op_ref, op_q, op_len = ops4[0], ops4[1], ops4[2]
     params = ops4[3]
     n_real, min_depth = params[0], params[2]
@@ -118,3 +134,6 @@ def pileup_call_packed(ops4: torch.Tensor, payload_ref: torch.Tensor, *,
     at = site_idx.long()
     return torch.cat([n_sites[None], site_idx, alt_code[at],
                       is_het[at].to(_I32), depth[at], alt_count[at]])
+
+
+pileup_call_packed = packed_window_body

@@ -1,14 +1,14 @@
 """The pipeline, BAM -> phased_sv.vcf, with its device routes on torch.
 
-Port of ``duet_tpu.pipeline``'s single-process modes: the batch run
-(``run_pipeline``, with ``--resume``), the contig-major streaming run
-(``run_pipeline_streaming``, ``--stream``) and the final stage alone from
-on-disk artifacts (``run_phase_only``, ``--phase-only``).  They run the
-same four stages (SNP calling -> SV calling -> SNP phasing -> SV phasing)
-and write the same on-disk artifacts and ``metrics.json`` schemas.  The
-host helpers (ingest, the artifact writers, contig naming, the run state)
-are copies of the JAX package's, and the stages are copies whose device
-lines call the port.
+Port of ``duet_tpu.pipeline``: the batch run (``run_pipeline``, with
+``--resume``), the contig-major streaming run (``run_pipeline_streaming``,
+``--stream``) and the final stage alone from on-disk artifacts
+(``run_phase_only``, ``--phase-only``).  They run the same four stages (SNP
+calling -> SV calling -> SNP phasing -> SV phasing) and write the same
+on-disk artifacts and ``metrics.json`` schemas.  The host helpers (ingest,
+the artifact writers, contig naming, the run state, the multi-process part
+files) are copies of the JAX package's, and the stages are copies whose
+device lines call the port.
 
 The device is explicit: ``PipelineConfig.device`` ('cuda' by default, or
 'cpu', which runs the same torch routes on the host).  ``device_stages``
@@ -17,8 +17,17 @@ size, 'off' keeps every stage on the host, and 'auto' uses the device only
 when it is a GPU and the input clears the JAX package's fast-link size
 gates (no link probe).  Outputs are byte-identical whichever route runs.
 
-Not ported yet (they raise NotImplementedError): --mesh and multi-process
-runs (--coordinator / --num-processes).
+``--mesh DP,SP`` shards SNP calling, SV clustering and read scoring over a
+dp x sp grid of this process's devices (``parallel.mesh``; on the CPU, 8
+logical devices).  As in duet_tpu the mesh is an explicit opt-in: those
+stages run on it whatever ``device_stages`` says, and phasing whenever the
+device kernels are allowed (not under --host-kernel).
+
+A multi-process run (``--num-processes`` / ``--process-id``, joined by
+torch.distributed on gloo at ``--coordinator``, or emulated without it)
+gives each process the contigs it owns round-robin; the stage outputs
+travel as part files in OUTPUT/parts/, and process 0 merges them and
+writes the final artifacts.
 """
 
 from __future__ import annotations
@@ -114,8 +123,8 @@ class PipelineConfig:
     # multi-process (multi-host) run: contigs are round-robin owned per
     # process, stage outputs exchanged as part-files on the shared
     # filesystem, process 0 is the single writer of the final artifacts
-    # (SURVEY.md §5.8). coordinator wires jax.distributed; without it the
-    # same ownership logic runs "emulated" (tested single-machine).
+    # (SURVEY.md §5.8). coordinator wires torch.distributed (gloo); without
+    # it the same ownership logic runs "emulated" (tested single-machine).
     num_processes: int | None = None
     process_id: int | None = None
     coordinator: str | None = None
@@ -134,8 +143,8 @@ class PipelineConfig:
                                         # haplotag-scoring and clustering
                                         # stages over a (data-parallel,
                                         # sequence-parallel) device mesh
-                                        # with in-graph XLA collectives
-                                        # (SURVEY.md §2.4); outputs stay
+                                        # with explicit collectives
+                                        # (parallel.mesh); outputs stay
                                         # byte-identical to single-device
     device: str = "cuda"                # "cuda" | "cpu": where device routes run
 
@@ -234,6 +243,94 @@ class PipelineState:
     sv_calls: dict[str, list] = field(default_factory=dict)
     phase_results: dict[str, PhaseResult] = field(default_factory=dict)
     read_haps: dict[str, dict[str, tuple[int, int, int]]] = field(default_factory=dict)
+    mesh: object | None = None  # resolved parallel.mesh.Mesh (cfg.mesh)
+
+
+def _resolve_mesh(cfg: PipelineConfig):
+    """Build the (dp, sp) device mesh from cfg.mesh ('DP,SP' or 'auto')
+    over this process's devices of cfg.device's type."""
+    if cfg.mesh is None:
+        return None
+    from duet_tpu_torch.parallel.mesh import local_devices, make_mesh
+
+    devices = local_devices(cfg.torch_device())
+    n = len(devices)
+    if cfg.mesh == "auto":
+        sp = 2 if n % 2 == 0 and n >= 4 else 1
+        dp = n // sp
+    else:
+        dp, sp = (int(x) for x in cfg.mesh.split(","))
+        if dp * sp > n:
+            raise ValueError(
+                f"--mesh {cfg.mesh} needs {dp * sp} devices, have {n}")
+    get_logger().info("device mesh: dp=%d sp=%d (%d devices)", dp, sp, dp * sp)
+    return make_mesh(dp=dp, sp=sp, devices=devices)
+
+
+def _proc(cfg: PipelineConfig) -> tuple[int, int]:
+    """Resolved (process_id, num_processes). Explicit config wins (emulated
+    multi-process testing); else the live process group's values.  Without
+    cfg.coordinator the process topology is trivially (0, 1)."""
+    if cfg.num_processes is not None:
+        if cfg.num_processes > 1 and cfg.process_id is None:
+            raise ValueError("--num-processes > 1 requires --process-id")
+        pid = cfg.process_id or 0
+        if not 0 <= pid < cfg.num_processes:
+            raise ValueError(
+                f"process_id {pid} out of range for {cfg.num_processes} processes")
+        return pid, cfg.num_processes
+    if cfg.coordinator is None:
+        return 0, 1
+    import torch.distributed as dist
+
+    return dist.get_rank(), dist.get_world_size()
+
+
+def _owned_contigs(names: list[str], pid: int, nproc: int) -> list[str]:
+    """Round-robin contig ownership over the sorted contig list — every
+    process derives the same assignment independently."""
+    ordered = sorted(names)
+    return [c for i, c in enumerate(ordered) if i % nproc == pid]
+
+
+def _barrier(cfg: PipelineConfig, name: str) -> None:
+    """Cross-process rendezvous; a no-op when emulated (the test harness
+    sequences the processes) or single-process."""
+    if cfg.coordinator is None:
+        return
+    import torch.distributed as dist
+
+    get_logger().info("barrier: %s", name)
+    dist.barrier()
+
+
+def _parts_dir(cfg: PipelineConfig) -> str:
+    d = os.path.join(cfg.output, "parts")
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def _dump_part(cfg: PipelineConfig, stage: str, pid: int, payload) -> None:
+    import pickle
+
+    path = os.path.join(_parts_dir(cfg), f"{stage}.part{pid}.pkl")
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(payload, f)
+    os.replace(tmp, path)  # atomic: readers never see a torn part
+
+
+def _load_parts(cfg: PipelineConfig, stage: str, nproc: int) -> list:
+    """The part files of `stage`: pickles this pipeline's processes wrote
+    into OUTPUT/parts/, read only by process 0 of the same run."""
+    import pickle
+
+    out = []
+    for pid in range(nproc):
+        path = os.path.join(_parts_dir(cfg), f"{stage}.part{pid}.pkl")
+        with open(path, "rb") as f:
+            out.append(pickle.load(f))
+    return out
 
 
 def _work_contigs(cfg: PipelineConfig, available: list[str]) -> list[str]:
@@ -346,21 +443,8 @@ def _ingest(cfg: PipelineConfig,
 
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to duet_tpu_torch yet (ROADMAP.md, Queue 1 "
-        f"item {item}); use duet-tpu for it")
-
-
-def _refuse_unported(cfg: PipelineConfig) -> None:
-    if cfg.mesh is not None:
-        raise _not_ported("--mesh", "11")
-    if cfg.coordinator is not None or (cfg.num_processes or 1) > 1:
-        raise _not_ported("a multi-process run", "12")
-
-
 def stage_snp_calling(cfg: PipelineConfig, st: PipelineState) -> None:
-    """Mirrors ``duet_tpu.pipeline.stage_snp_calling`` (single process)."""
+    """Mirrors ``duet_tpu.pipeline.stage_snp_calling``."""
     out_dir = os.path.join(cfg.output, "snp_calling")
     os.makedirs(out_dir, exist_ok=True)
     artifact = os.path.join(out_dir, "pileup.vcf.gz")
@@ -378,14 +462,20 @@ def stage_snp_calling(cfg: PipelineConfig, st: PipelineState) -> None:
                 break
     st.snps, st.site_obs = call_snps_for_store(
         st.store, ref_codes, cfg.snp_cfg(), threads=cfg.threads,
-        device=cfg.torch_device(), nn_device=cfg.nn_device())
-    write_pileup_vcf(artifact, st.snps, st.store.contig_lengths)
+        device=cfg.torch_device(), nn_device=cfg.nn_device(), mesh=st.mesh)
+    pid, nproc = _proc(cfg)
+    if nproc > 1:
+        # multi-process: the canonical pileup.vcf.gz is merged and written
+        # by process 0 at the final stage
+        _dump_part(cfg, "snp", pid, (st.snps, st.store.contig_lengths))
+    else:
+        write_pileup_vcf(artifact, st.snps, st.store.contig_lengths)
     n = sum(len(s.pos) for s in st.snps.values())
     get_logger().info("called %d SNP sites over %d contigs", n, len(st.snps))
 
 
 def stage_sv_calling(cfg: PipelineConfig, st: PipelineState) -> None:
-    """Mirrors ``duet_tpu.pipeline.stage_sv_calling`` (single process)."""
+    """Mirrors ``duet_tpu.pipeline.stage_sv_calling``."""
     out_dir = os.path.join(cfg.output, "sv_calling")
     os.makedirs(out_dir, exist_ok=True)
     artifact = os.path.join(out_dir, "variants.vcf")
@@ -397,10 +487,13 @@ def stage_sv_calling(cfg: PipelineConfig, st: PipelineState) -> None:
 
     def one(item):
         contig, cr = item
-        return contig, call_contig_with_evidence(cr, sv_cfg, device=dev)
+        return contig, call_contig_with_evidence(cr, sv_cfg, device=dev,
+                                                 mesh=st.mesh)
 
     work = list(st.store.contigs.items())
-    if cfg.threads > 1 and len(work) > 1:
+    if cfg.threads > 1 and len(work) > 1 and st.mesh is None:
+        # mesh runs go contig-serial: the shards already occupy every
+        # device, and serial dispatch keeps them deterministic
         from concurrent.futures import ThreadPoolExecutor
 
         with ThreadPoolExecutor(cfg.threads) as ex:
@@ -410,6 +503,17 @@ def stage_sv_calling(cfg: PipelineConfig, st: PipelineState) -> None:
     calls = {c: r[0] for c, r in results}
     evidence = {c: r[1] for c, r in results}
     st.sv_calls = calls  # the phasing stage protects their support spans
+    pid, nproc = _proc(cfg)
+    if nproc > 1:
+        # per-contig calls + breakend evidence travel as a part-file:
+        # breakend junctions may pair contigs owned by DIFFERENT processes,
+        # so clustering runs globally on process 0 over the merged evidence
+        _dump_part(cfg, "sv", pid,
+                   (calls, evidence, st.store.contig_lengths))
+        n = sum(len(v) for v in calls.values())
+        get_logger().info("clustered %d SV candidates (part %d/%d)",
+                          n, pid, nproc)
+        return
     bnds = call_bnds(evidence, sv_cfg)
     write_sv_vcf(artifact, calls, st.store.contig_lengths,
                  family=cfg.sv_caller, bnds=bnds)
@@ -422,7 +526,8 @@ def stage_snp_phasing(cfg: PipelineConfig, st: PipelineState) -> None:
     """Mirrors ``duet_tpu.pipeline.stage_snp_phasing``: the refine/correct
     loop per contig (thread pool, each contig behind its own nnz gate),
     then the read scoring of all contigs in one batch, on the device when
-    their combined nnz clears the gate (``score_contigs_batched``)."""
+    their combined nnz clears the gate (``score_contigs_batched``); under
+    a mesh, ``phase_contig`` on the mesh contig by contig."""
     out_dir = os.path.join(cfg.output, "snp_phasing")
     os.makedirs(out_dir, exist_ok=True)
     if cfg.resume and not st.sv_calls:
@@ -440,27 +545,38 @@ def stage_snp_phasing(cfg: PipelineConfig, st: PipelineState) -> None:
     use_device = cfg.stages_on_device()
     min_nnz = cfg.phasing_device_min_nnz()
     work = [(c, s) for c, s in st.snps.items() if c in st.store.contigs]
-
-    def core(item):
-        contig, snps = item
-        return contig, phase_contig_core(
-            st.store.contigs[contig], snps, cfg.snp_cfg(),
-            use_device=use_device, obs=st.site_obs.get(contig),
-            min_junction_evidence=cfg.min_junction_evidence,
-            device_min_nnz=min_nnz,
-            adaptive_junction_split=cfg.adaptive_junction_split,
-            protect_intervals=_sv_protect_intervals(cfg, st, contig),
-            device=dev)
-
-    if cfg.threads > 1 and len(work) > 1:
-        from concurrent.futures import ThreadPoolExecutor
-
-        with ThreadPoolExecutor(cfg.threads) as ex:
-            cores = dict(ex.map(core, work))
+    if st.mesh is not None:
+        # per contig on the mesh, which runs whenever the device kernels
+        # are allowed (duet_tpu's opt-in; --host-kernel keeps the host)
+        scored = {
+            c: phase_contig(st.store.contigs[c], s, cfg.snp_cfg(),
+                            use_device=cfg.use_device_kernel,
+                            obs=st.site_obs.get(c), mesh=st.mesh,
+                            min_junction_evidence=cfg.min_junction_evidence,
+                            device_min_nnz=min_nnz,
+                            adaptive_junction_split=cfg.adaptive_junction_split,
+                            protect_intervals=_sv_protect_intervals(cfg, st, c))
+            for c, s in work}
     else:
-        cores = dict(map(core, work))
+        def core(item):
+            contig, snps = item
+            return contig, phase_contig_core(
+                st.store.contigs[contig], snps, cfg.snp_cfg(),
+                use_device=use_device, obs=st.site_obs.get(contig),
+                min_junction_evidence=cfg.min_junction_evidence,
+                device_min_nnz=min_nnz,
+                adaptive_junction_split=cfg.adaptive_junction_split,
+                protect_intervals=_sv_protect_intervals(cfg, st, contig),
+                device=dev)
 
-    scored = score_contigs_batched(cores, use_device, min_nnz, dev)
+        if cfg.threads > 1 and len(work) > 1:
+            from concurrent.futures import ThreadPoolExecutor
+
+            with ThreadPoolExecutor(cfg.threads) as ex:
+                cores = dict(ex.map(core, work))
+        else:
+            cores = dict(map(core, work))
+        scored = score_contigs_batched(cores, use_device, min_nnz, dev)
     for contig, snps in work:
         cr = st.store.contigs[contig]
         result = scored[contig]
@@ -483,9 +599,59 @@ def stage_snp_phasing(cfg: PipelineConfig, st: PipelineState) -> None:
             int((result.read_hap != 0).sum()), n_reads)
 
 
+def _bam_order(cfg: PipelineConfig, d: dict) -> dict:
+    """Reorder a per-contig dict to the BAM header's contig order — the
+    order a single-process run iterates in, so merged multi-process
+    artifacts stay byte-identical (lexicographic sort would swap e.g.
+    chr10 before chr2)."""
+    from duet_tpu_torch.io.bam import BamReader
+
+    with BamReader(cfg.bam) as r:
+        rank = {n: i for i, n in enumerate(r.header.ref_names)}
+    return dict(sorted(d.items(), key=lambda kv: rank.get(kv[0], len(rank))))
+
+
+def _merge_parts_and_write(cfg: PipelineConfig, nproc: int) -> None:
+    """Process 0: fuse every part-file into the canonical single-process
+    artifacts (pileup.vcf.gz, variants.vcf incl. globally clustered
+    breakends) — from here on the final stage is identical to a
+    single-process run."""
+    snps: dict = {}
+    lengths: dict[str, int] = {}
+    for part_snps, part_lengths in _load_parts(cfg, "snp", nproc):
+        snps.update(part_snps)
+        lengths.update(part_lengths)
+    snps = _bam_order(cfg, snps)
+    write_pileup_vcf(os.path.join(cfg.output, "snp_calling", "pileup.vcf.gz"),
+                     snps, lengths)
+
+    calls: dict = {}
+    evidence: dict = {}
+    for part_calls, part_ev, part_lengths in _load_parts(cfg, "sv", nproc):
+        calls.update(part_calls)
+        evidence.update(part_ev)
+        lengths.update(part_lengths)
+    calls = _bam_order(cfg, calls)
+    bnds = call_bnds(evidence, cfg.sv_cfg())
+    write_sv_vcf(os.path.join(cfg.output, "sv_calling", "variants.vcf"),
+                 calls, lengths, family=cfg.sv_caller, bnds=bnds)
+    get_logger().info(
+        "merged %d part(s): %d contigs, %d breakend pairs", nproc,
+        len(calls), len(bnds),
+    )
+
+
 def stage_sv_phasing(cfg: PipelineConfig, st: PipelineState) -> None:
-    """Mirrors ``duet_tpu.pipeline.stage_sv_phasing`` (single process),
-    with the decision pass on the device when ``decide_on_device``."""
+    """Mirrors ``duet_tpu.pipeline.stage_sv_phasing``, with the decision
+    pass on the device when ``decide_on_device``.  In a multi-process run
+    every process meets at a barrier, and process 0 alone merges the parts
+    and writes the final artifacts."""
+    pid, nproc = _proc(cfg)
+    if nproc > 1:
+        _barrier(cfg, "pre-merge")
+        if pid != 0:
+            return  # single-writer emission on process 0 (SURVEY.md §5.8)
+        _merge_parts_and_write(cfg, nproc)
     variants = os.path.join(cfg.output, "sv_calling", "variants.vcf")
     artifact = os.path.join(cfg.output, "phased_sv.vcf")
     if not os.path.exists(variants):
@@ -544,8 +710,8 @@ def _device_info(dev: torch.device) -> dict:
 
 def run_pipeline_streaming(cfg: PipelineConfig) -> str:
     """Contig-major streaming run for memory-bounded whole-genome inputs;
-    mirrors ``duet_tpu.pipeline.run_pipeline_streaming`` (single device, no
-    mesh, no compile cache).
+    mirrors ``duet_tpu.pipeline.run_pipeline_streaming`` (no compile
+    cache).
 
     Instead of decoding the whole BAM up front, each coordinate-sorted
     contig is decoded, SNP-called, SV-called, phased and haplotagged, then
@@ -553,17 +719,21 @@ def run_pipeline_streaming(cfg: PipelineConfig) -> str:
     decodes ahead).  The final cross-contig SV-phasing stage runs once at
     the end.  Output artifacts are identical to run_pipeline's.  The device
     routes follow ``stages_on_device``, and each contig's reads are scored
-    on their own (``phase_contig``), not batched across contigs."""
+    on their own (``phase_contig``), not batched across contigs; under a
+    mesh each stage runs on it as in the batch run."""
     from duet_tpu_torch.io.readstore import (
         prefetch_iter,
         stream_contig_reads_auto,
     )
-    from duet_tpu_torch.models.snp_caller import call_contig_snps
+    from duet_tpu_torch.models.snp_caller import (
+        _at_site_obs,
+        call_contig_snps,
+        mesh_pileup_ok,
+    )
 
     if (cfg.num_processes or 1) > 1:
         raise ValueError("--stream does not combine with multi-process runs; "
                          "use one mode or the other")
-    _refuse_unported(cfg)
     dev = cfg.torch_device()
     check_envs(cfg)
     os.makedirs(cfg.output, exist_ok=True)
@@ -574,6 +744,7 @@ def run_pipeline_streaming(cfg: PipelineConfig) -> str:
     devcost.reset()
 
     st = PipelineState()
+    st.mesh = _resolve_mesh(cfg)
     st.ref = FastaFile(cfg.reference)
     snp_dir = os.path.join(cfg.output, "snp_calling")
     sv_dir = os.path.join(cfg.output, "sv_calling")
@@ -617,7 +788,9 @@ def run_pipeline_streaming(cfg: PipelineConfig) -> str:
         stream = prefetch_iter(stream, depth=1)
     log.info("streaming ingest backend: %s%s", stream_backend,
              " (prefetch depth 1)" if prefetch else "")
-    use_device = cfg.stages_on_device()
+    # the mesh is an opt-in: phasing runs on it unless --host-kernel
+    use_device = cfg.use_device_kernel if st.mesh is not None \
+        else cfg.stages_on_device()
     with StageTimer("STREAMING CONTIG PASS"):
         t_iter = time.perf_counter()
         for cr, contig_lengths in stream:
@@ -643,21 +816,32 @@ def run_pipeline_streaming(cfg: PipelineConfig) -> str:
             codes = st.ref.fetch_codes(fa_name)
             _mark("ingest", t)  # reference load is ingest, not SNP calling
             t = time.perf_counter()
-            snps, site_obs = call_contig_snps(cr.contig, cr, codes,
-                                              cfg.snp_cfg(), dev,
-                                              cfg.nn_device())
+            snp_cfg = cfg.snp_cfg()
+            if st.mesh is not None and mesh_pileup_ok(snp_cfg):
+                from duet_tpu_torch.parallel.shard_pileup import (
+                    call_snps_sharded,
+                )
+
+                snps = call_snps_sharded(st.mesh, cr.contig, cr, codes,
+                                         snp_cfg)
+                site_obs = _at_site_obs(cr, snp_cfg, snps.pos)
+            else:
+                snps, site_obs = call_contig_snps(cr.contig, cr, codes,
+                                                  snp_cfg, dev,
+                                                  cfg.nn_device())
             snps_all[cr.contig] = snps
             _mark("snp_calling", t)
             # cross-contig breakend evidence survives the contig's release
             t = time.perf_counter()
             calls_all[cr.contig], bnd_evidence[cr.contig] = \
-                call_contig_with_evidence(cr, cfg.sv_cfg(), device=dev)
+                call_contig_with_evidence(cr, cfg.sv_cfg(), device=dev,
+                                          mesh=st.mesh)
             st.sv_calls[cr.contig] = calls_all[cr.contig]
             _mark("sv_calling", t)
             t = time.perf_counter()
             result = phase_contig(
                 cr, snps, cfg.snp_cfg(), use_device=use_device, obs=site_obs,
-                min_junction_evidence=cfg.min_junction_evidence,
+                min_junction_evidence=cfg.min_junction_evidence, mesh=st.mesh,
                 device_min_nnz=cfg.phasing_device_min_nnz(),
                 adaptive_junction_split=cfg.adaptive_junction_split,
                 protect_intervals=_sv_protect_intervals(cfg, st, cr.contig,
@@ -752,27 +936,48 @@ def run_phase_only(cfg: PipelineConfig) -> str:
 
 def run_pipeline(cfg: PipelineConfig) -> str:
     """Run all stages; returns the phased_sv.vcf path.  Mirrors
-    ``duet_tpu.pipeline.run_pipeline`` (single process, no mesh, no
-    compile cache); OUTPUT/metrics.json keeps its schema and adds the
-    device the run was configured for."""
-    _refuse_unported(cfg)
+    ``duet_tpu.pipeline.run_pipeline`` (no compile cache); OUTPUT/
+    metrics.json (metrics.p{pid}.json on process pid > 0) keeps its schema
+    and adds the device the run was configured for."""
     dev = cfg.torch_device()
     check_envs(cfg)
     os.makedirs(cfg.output, exist_ok=True)
-    setup_logging(cfg.output, file_name="run_duet.log")
+    if cfg.coordinator is not None:
+        from duet_tpu_torch.parallel.distributed import init_distributed
+
+        init_distributed(cfg.coordinator, cfg.num_processes, cfg.process_id)
+    pid, nproc = _proc(cfg)
+    if nproc > 1 and cfg.resume:
+        raise ValueError("--resume does not combine with multi-process runs: "
+                         "stage outputs live in part files, not the "
+                         "single-process artifacts resume checks")
+    setup_logging(cfg.output, file_name="run_duet.log" if pid == 0
+                  else f"run_duet.p{pid}.log")
     log = get_logger()
+    if nproc > 1:
+        log.info("multi-process run: process %d of %d", pid, nproc)
 
     t0 = time.time()
     dispatch.reset()
     devcost.reset()
     st = PipelineState()
+    st.mesh = _resolve_mesh(cfg)
     metrics: dict = {"stages": {}, "counts": {}}
     with StageTimer("INGEST"):
         t = time.time()
         st.ref = FastaFile(cfg.reference)
         fasta_s = time.time() - t
+        owned = None
+        if nproc > 1:
+            from duet_tpu_torch.io.bam import BamReader
+
+            with BamReader(cfg.bam) as r:
+                bam_names = list(r.header.ref_names)
+            work = _work_contigs(cfg, bam_names)
+            owned = set(_owned_contigs(work, pid, nproc))
+            log.info("owned contigs: %s", sorted(owned))
         t_bam = time.time()
-        st.store, ingest_backend = _ingest(cfg)
+        st.store, ingest_backend = _ingest(cfg, only_contigs=owned)
         bam_s = time.time() - t_bam
         n_reads = sum(c.n for c in st.store.contigs.values())
         metrics["stages"]["ingest"] = round(time.time() - t, 4)
@@ -806,6 +1011,9 @@ def run_pipeline(cfg: PipelineConfig) -> str:
     metrics["device_dispatch"] = snap
     metrics["device_cost"] = devcost.snapshot()
     metrics["device"] = _device_info(dev)
+    if st.mesh is not None:
+        metrics["mesh"] = {"dp": int(st.mesh.shape["dp"]),
+                           "sp": int(st.mesh.shape["sp"])}
     if cfg.device_stages == "auto":
         # the JAX package's fast-link gates; the port runs no link probe
         metrics["device_size_gates"] = {
@@ -819,7 +1027,8 @@ def run_pipeline(cfg: PipelineConfig) -> str:
         len(m) for m in st.read_haps.values())
     metrics["total_s"] = round(time.time() - t0, 4)
     metrics["peak_rss_mb"] = _peak_rss_mb()
-    with open(os.path.join(cfg.output, "metrics.json"), "w") as f:
+    metrics_name = "metrics.json" if pid == 0 else f"metrics.p{pid}.json"
+    with open(os.path.join(cfg.output, metrics_name), "w") as f:
         json.dump(metrics, f, indent=2)
     log.info("ALL STAGES COMPLETED IN %ss", metrics["total_s"])
     log.info("OUTPUT: %s", os.path.join(cfg.output, "phased_sv.vcf"))

@@ -352,14 +352,23 @@ def test_pipeline_config_methods_agree():
 
 
 def test_cli_flags_equal():
+    """Every flag of duet-tpu, with its help text, but for the help of
+    --profile and --coordinator, which name torch's profiler and
+    torch.distributed where duet-tpu's name JAX's."""
+    own_help = ("profile", "coordinator")
+
     def flags(parser):
         return [(a.dest, tuple(a.option_strings), a.default,
-                 tuple(a.choices or ()), a.help)
+                 tuple(a.choices or ()),
+                 None if a.dest in own_help else a.help)
                 for a in parser._actions if a.dest != "help"]
     got = flags(t_cli.build_parser())
     want = flags(j_cli.build_parser())
     assert got[:-1] == want
     assert got[-1][:2] == ("device", ("--device",))
+    helps = {a.dest: a.help for a in t_cli.build_parser()._actions}
+    assert "torch.profiler" in helps["profile"]
+    assert "torch.distributed" in helps["coordinator"]
 
 
 def test_shipped_weights_equal():

@@ -1,11 +1,13 @@
 """The torch port stands alone: no module of ``duet_tpu_torch`` nor
 ``chip_smoke.py`` imports the JAX package ``duet_tpu``, and a fresh
 interpreter that refuses duet_tpu and JAX simulates a dataset, runs the CLI
-end to end under --device-stages on and off and with --stream, and imports
-the bench and the smoke script."""
+end to end under --device-stages on and off, with --stream, with --mesh 2,2
+and as two emulated processes, and imports the bench and the smoke
+script."""
 
 import ast
 import glob
+import json
 import os
 import subprocess
 import sys
@@ -38,15 +40,27 @@ def test_no_import_of_duet_tpu(path):
     assert not bad, f"{path} imports the JAX package: {bad}"
 
 
-@pytest.mark.parametrize("mode", ["on", "off", "stream"])
+# the CLI runs of each case: one run, or the two emulated processes of a
+# multi-process run (process 1 first) against one OUTPUT
+MODES = {
+    "on": [["--device-stages", "on"]],
+    "off": [["--device-stages", "off"]],
+    "stream": [["--device-stages", "on", "--stream"]],
+    "mesh": [["--mesh", "2,2"]],
+    "two-process": [["--device-stages", "on", "--num-processes", "2",
+                     "--process-id", pid] for pid in ("1", "0")],
+}
+
+
+@pytest.mark.parametrize("mode", list(MODES))
 def test_cli_runs_with_duet_tpu_refused(tmp_path, mode):
     """The import system refuses duet_tpu, jax, jaxlib, ml_dtypes and
-    optax; the port's simulator, CLI (batch under on and off, and --stream
-    under on), bench and chip_smoke.py still work."""
+    optax; the port's simulator, CLI (batch under on and off, --stream
+    under on, --mesh 2,2, and two emulated processes), bench and
+    chip_smoke.py still work."""
     data = str(tmp_path / "data")
     out = str(tmp_path / "out")
-    flags = ["--device-stages", "on", "--stream"] if mode == "stream" \
-        else ["--device-stages", mode]
+    runs = MODES[mode]
     script = textwrap.dedent(f"""
         import importlib.abc, runpy, sys
         BLOCKED = ("duet_tpu", "jax", "jaxlib", "ml_dtypes", "optax")
@@ -63,14 +77,15 @@ def test_cli_runs_with_duet_tpu_refused(tmp_path, mode):
                                              seed=6, coverage=10.0))
         import chip_smoke
         import duet_tpu_torch.bench
-        sys.argv = ["duet_tpu_torch", {data!r} + "/reads.bam",
-                    {data!r} + "/ref.fa", {out!r}, "--device", "cpu",
-                    *{flags!r}, "-t", "2"]
-        try:
-            runpy.run_module("duet_tpu_torch", run_name="__main__",
-                             alter_sys=True)
-        except SystemExit as e:
-            assert e.code == 0, e.code
+        for flags in {runs!r}:
+            sys.argv = ["duet_tpu_torch", {data!r} + "/reads.bam",
+                        {data!r} + "/ref.fa", {out!r}, "--device", "cpu",
+                        *flags, "-t", "2"]
+            try:
+                runpy.run_module("duet_tpu_torch", run_name="__main__",
+                                 alter_sys=True)
+            except SystemExit as e:
+                assert e.code == 0, e.code
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in BLOCKED)
         assert not loaded, loaded
@@ -83,3 +98,10 @@ def test_cli_runs_with_duet_tpu_refused(tmp_path, mode):
     assert "STANDALONE_RUN_OK" in proc.stdout
     with open(os.path.join(out, "phased_sv.vcf")) as f:
         assert f.readline().startswith("##fileformat=VCF")
+    with open(os.path.join(out, "metrics.json")) as f:
+        metrics = json.load(f)
+    if mode == "mesh":
+        assert metrics["mesh"] == {"dp": 2, "sp": 2}
+        assert metrics["backends"]["haplotag"] == "mesh"
+    if mode == "two-process":
+        assert os.path.exists(os.path.join(out, "metrics.p1.json"))

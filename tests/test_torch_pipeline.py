@@ -1,8 +1,10 @@
 """The torch port's batch pipeline end to end: byte-identical artifacts
 against duet_tpu's run_pipeline under --device-stages on and off, a run
 that never imports jax (in a subprocess, since this test process has jax
-loaded), and the refusals of the modes not ported yet (--stream, --resume
-and --phase-only are held against duet_tpu in test_torch_modes.py)."""
+loaded), and a --device cuda run on a host without a card (--stream,
+--resume and --phase-only are held against duet_tpu in
+test_torch_modes.py, --mesh in test_torch_mesh.py, multi-process runs in
+test_torch_multiprocess.py and --profile in test_torch_profile.py)."""
 
 import gzip
 import json
@@ -17,7 +19,6 @@ import torch
 from duet_tpu.pipeline import PipelineConfig as JaxConfig
 from duet_tpu.pipeline import run_pipeline as jax_run
 from duet_tpu.utils.devcost import _FIELDS
-from duet_tpu_torch.cli import main as cli_main
 from duet_tpu_torch.pipeline import PipelineConfig, run_pipeline
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -111,16 +112,6 @@ def test_cli_run_imports_no_jax(tmp_path):
         backends = json.load(f)["backends"]
     assert backends["snp_pileup"] == backends["haplotag"] == "device"
     assert os.path.exists(os.path.join(out, "phased_sv.vcf"))
-
-
-@pytest.mark.parametrize("flags", [
-    ["--mesh", "1,1"], ["--coordinator", "localhost:1234"],
-    ["--num-processes", "2", "--process-id", "0"], ["--profile"],
-])
-def test_unported_modes_refuse(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cli_main(["x.bam", "x.fa", str(tmp_path / "out"), "--device", "cpu",
-                  *flags])
 
 
 def test_cuda_device_without_card(sim_dataset, tmp_path):
