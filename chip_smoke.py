@@ -58,7 +58,18 @@ together).  Phases, each printing one line:
                 CUDA kernel events, and the device idle share;
   [multiprocess]  two processes on card 0 joined by torch.distributed (gloo)
                 at a local coordinator, each owning one contig: pileup,
-                variants and phased_sv byte-identical to the batch run.
+                variants and phased_sv byte-identical to the batch run;
+  [train]       nn_snp.train on the card at full size (duet_tpu's default
+                corpus, 1200 steps, batch 16384): corpus, reader, ms a
+                step, loss and train recall;
+  [snp_grid]    the trained and the shipped weights on snp_grid --quick's
+                cells on the card: the trained F1 within 0.02 of the
+                shipped, the shipped calls equal on card and CPU;
+  [crossover]   tools.haplotag_crossover on the card (dense mode through
+                haplotag_score, sparse, multi-contig), outputs equal to
+                the host scorer's, with its timing rows;
+  [tools]       the demo maker, eval.evaluate of the batch run, merge of
+                the batch and stream callsets, view -c and a sweep point.
 
 Every comparison of a kernel with its plain version is exact (torch.equal).
 Times are medians of CUDA-event timed launches taken in turns (plain,
@@ -67,9 +78,9 @@ its bytes over the card's memory rate and its operations over the peak
 rate for their type) and one PyTorch library call on the same inputs (a
 float32 cuBLAS product; the port never calls it).
 Each path (the pipeline on, the stream, the resume, haplotag_score, the
-bench, --profile, each process of the multi-process run) runs with the
-launch counts set to 0 just before it and read just after, and fails if a
-kernel of that path never launched.  The mesh path launches none: as in
+bench, --profile, each process of the multi-process run, the crossover
+tool) runs with the launch counts set to 0 just before it and read just
+after, and fails if a kernel of that path never launched.  The mesh path launches none: as in
 duet_tpu, its products are plain matmuls outside any kernel.  Any failure
 exits non-zero.  The second-to-last line is one JSON object describing the
 kernels; the last is {"ok": true, "device": {...}}.
@@ -1285,6 +1296,228 @@ def phase_multiprocess(report: dict, data: str, work: str) -> None:
           f"{json.dumps([m['stages'] for m in metrics])}", flush=True)
 
 
+TRAIN_STEPS = 1200
+
+
+def phase_train(report: dict, work: str) -> None:
+    """``nn_snp.train`` on the card at full size: duet_tpu's default corpus
+    (4 seeds x 7 coverages of a 300 kb contig), 1200 steps, batch 16384,
+    the model's full 51-64-64-3 width.  The weights go to the work
+    directory; the shipped weights stay untouched."""
+    import hashlib
+
+    import torch
+
+    from duet_tpu_torch.io import native_ingest
+    from duet_tpu_torch.models import nn_snp
+
+    def digest(path):
+        with open(path, "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+
+    shipped = digest(nn_snp.DEFAULT_WEIGHTS)
+    out = os.path.join(work, "nn_snp_trained.npz")
+    lines, stamps = [], {}
+
+    def log(msg: str) -> None:
+        # train syncs the card for each loss it logs (float(loss)), so the
+        # clock between two logged steps spans finished steps
+        stamps[msg.split(":")[0]] = time.perf_counter()
+        lines.append(msg)
+
+    native_ingest.LAST_DECODE_STATS = None
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    nn_snp.train(out, steps=TRAIN_STEPS, device=torch.device("cuda"),
+                 log=log)
+    wall = time.perf_counter() - t0
+    reader = "native" if native_ingest.LAST_DECODE_STATS else "python"
+    if digest(nn_snp.DEFAULT_WEIGHTS) != shipped:
+        raise AssertionError("training changed the shipped weights")
+    n = int(lines[0].split()[2])
+    last = f"step {TRAIN_STEPS - 1}"
+    ms_step = (stamps[last] - stamps["step 100"]) / (TRAIN_STEPS - 101) * 1e3
+    losses = [float(m.rsplit(" ", 1)[1]) for m in lines
+              if m.startswith("step ")]
+    recall = {m.split("[")[1].split("]")[0]: float(m.rsplit(" ", 1)[1])
+              for m in lines if m.startswith("train recall[")}
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"the training loss did not fall: {losses}")
+    report["train"] = {"weights": out, "ms_step": ms_step}
+    print(f"[train] nn_snp.train on cuda: {lines[0]}; reader {reader}; "
+          f"corpus built in {stamps['training set'] - t0:.1f} s; "
+          f"{TRAIN_STEPS} steps of batch {min(16384, n)}, "
+          f"{ms_step:.4f} ms a step (card synced, steps 101-"
+          f"{TRAIN_STEPS - 1}); loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"train recall {json.dumps(recall)}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; wall "
+          f"{wall:.1f} s on {report['card']}", flush=True)
+
+
+def _grid_counts(coverage: float, sub_error: float, seed: int):
+    """snp_grid.run_cell's dataset and pileup: (counts, ref codes, truth
+    arrays) of its 250 kb contig."""
+    from duet_tpu_torch.io.fasta import FastaFile
+    from duet_tpu_torch.io.readstore import load_read_store
+    from duet_tpu_torch.models.snp_caller_host import (
+        SnpCallConfig, count_alleles, pileup_observations)
+    from duet_tpu_torch.sim import SimConfig, simulate_dataset
+
+    tmp = tempfile.mkdtemp(prefix="snp_grid_")
+    try:
+        truth = simulate_dataset(tmp, SimConfig(
+            contigs={"chrG": 250_000}, seed=seed, coverage=coverage,
+            sub_error=sub_error, sv_count_per_mb=0.0))
+        cr = load_read_store(os.path.join(tmp, "reads.bam")).contigs["chrG"]
+        codes = FastaFile(os.path.join(tmp, "ref.fa")).fetch_codes("chrG")
+        cfg = SnpCallConfig()
+        obs = pileup_observations(cr, cfg)
+        counts = count_alleles(obs[0], obs[1], obs[2], len(codes),
+                               cfg.min_base_qual)
+        return counts, codes, (truth.snp_pos["chrG"], truth.snp_alt["chrG"],
+                               truth.snp_gt["chrG"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+GRID_CELLS = [(6.0, 0.02, 101), (10.0, 0.02, 101)]   # snp_grid --quick
+
+
+def phase_snp_grid(report: dict) -> None:
+    """The newly trained weights against the shipped ones on snp_grid
+    --quick's cells, both on the card; fails if the trained F1 falls more
+    than 0.02 below the shipped F1 in a cell.  The shipped weights' calls
+    on the card equal their calls on the CPU, and snp_grid.run_cell on the
+    card scores them as this phase does."""
+    import torch
+
+    from duet_tpu_torch.models.nn_snp import load_model, nn_call_snps
+    from duet_tpu_torch.tools import snp_grid
+
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    models = {"trained": load_model(report["train"]["weights"], cuda),
+              "shipped": load_model(device=cuda)}
+    rows = []
+    for cov, err, seed in GRID_CELLS:
+        counts, codes, truth = _grid_counts(cov, err, seed)
+        row = {"coverage": cov, "sub_error": err, "seed": seed}
+        for name, model in models.items():
+            snps = nn_call_snps("chrG", counts, codes, model=model,
+                                device=cuda)
+            row[name] = snp_grid.score(snps, *truth)
+            if name == "shipped":
+                host = nn_call_snps("chrG", counts, codes, device=cpu)
+                for f in ("pos", "alt_code", "is_het"):
+                    if not np.array_equal(getattr(snps, f), getattr(host, f)):
+                        raise AssertionError(f"shipped weights: {f} differs "
+                                             f"between card and CPU")
+        cell = snp_grid.run_cell(cov, err, seed, device=cuda)
+        if cell["nn"] != row["shipped"]:
+            raise AssertionError(f"snp_grid.run_cell scored {cell['nn']}, "
+                                 f"this phase {row['shipped']}")
+        row["counts"] = cell["counts"]
+        if row["trained"]["f1"] < row["shipped"]["f1"] - 0.02:
+            raise AssertionError(f"trained F1 {row['trained']['f1']} is more "
+                                 f"than 0.02 below shipped "
+                                 f"{row['shipped']['f1']} at {cov}x")
+        rows.append(row)
+    report["snp_grid"] = rows
+    print(f"[snp_grid] trained vs shipped weights on the card, snp_grid "
+          f"--quick cells; the shipped weights' calls equal on card and "
+          f"CPU; rows {json.dumps(rows)}", flush=True)
+
+
+def phase_crossover(report: dict) -> None:
+    """tools.haplotag_crossover on cuda, as its CLI runs it: host, dense
+    (the hand kernel haplotag_score) and sparse scorers at 50k, 200k and
+    800k nnz, then the multi-contig launch; every output equal to the
+    host scorer's (the tool asserts it)."""
+    from duet_tpu_torch.ops import haplotag_kernel
+    from duet_tpu_torch.tools import haplotag_crossover
+
+    docs = []
+    for argv in (["--sizes", "50,200,800"],
+                 ["--multi", "2,4,8", "--sizes", "512"]):
+        _reset_launches()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc = haplotag_crossover.main(argv)
+        if rc != 0:
+            raise AssertionError(f"haplotag_crossover {argv} exited {rc}")
+        counts = dict(haplotag_kernel.LAUNCHES)
+        docs.append(json.loads(out.getvalue().strip().splitlines()[-1]))
+        if "--multi" not in argv:
+            _require_launches(counts, ["haplotag_score"],
+                              "haplotag_crossover's dense mode")
+            report["crossover_launches"] = counts["haplotag_score"]
+    report["crossover"] = docs
+    print(f"[crossover] haplotag_crossover --device cuda, outputs equal to "
+          f"the host scorer's; haplotag_score launches "
+          f"{report['crossover_launches']}; crossover nnz by mode "
+          f"{json.dumps(docs[0]['crossover_nnz_by_mode'])}; rows "
+          f"{json.dumps(docs[0]['rows'])}; --multi 2,4,8 --sizes 512 rows "
+          f"{json.dumps(docs[1]['rows'])} on {report['card']}", flush=True)
+
+
+def phase_tools(report: dict, data: str, work: str) -> None:
+    """The demo maker, the evaluation of the batch run against the smoke's
+    truth, a merge of the batch and stream callsets, a region count and a
+    one-point cluster_max_distance sweep, each through its entry point."""
+    from duet_tpu_torch.eval import evaluate
+    from duet_tpu_torch.sim import cli_make_demo
+    from duet_tpu_torch.tools import merge, sweep, view
+
+    def run(main, argv) -> str:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = main(argv)
+        if rc != 0:
+            raise AssertionError(f"{main.__module__} {argv} exited {rc}")
+        return out.getvalue()
+
+    demo = os.path.join(work, "demo")
+    run(cli_make_demo.main, [demo])
+    missing = [n for n in ("reads.bam", "reads.bam.bai", "ref.fa",
+                           "ref.fa.fai", "truth.vcf")
+               if not os.path.exists(os.path.join(demo, n))]
+    if missing:
+        raise AssertionError(f"cli_make_demo wrote no {missing}")
+    truth = os.path.join(data, "truth.vcf")
+    batch = os.path.join(work, "on", "phased_sv.vcf")
+    scores = json.loads(run(evaluate.main, [batch, truth]))
+    f1 = {k: scores[k]["f1"] for k in ("calling", "genotyping", "phasing")}
+    if f1["calling"] <= 0.5:
+        raise AssertionError(f"the batch run's calling F1 is {f1}")
+    merged = os.path.join(work, "merged.vcf")
+    run(merge.main, [batch, os.path.join(work, "stream", "phased_sv.vcf"),
+                     "-o", merged, "--names", "batch", "stream"])
+    with open(merged) as f:
+        records = [ln for ln in f if not ln.startswith("#")]
+    both = sum(";NS=2\t" in ln for ln in records)
+    if not both:
+        raise AssertionError("merging two identical callsets matched no "
+                             "call across them")
+    bam = os.path.join(data, "reads.bam")
+    region = "chr1:1000000-1100000"
+    n_view = int(run(view.main, ["-c", bam, region]))
+    if n_view <= 0:
+        raise AssertionError(f"view -c {region} counted {n_view}")
+    t = time.perf_counter()
+    sw = json.loads(run(sweep.main, [bam, os.path.join(data, "ref.fa"),
+                                     os.path.join(work, "sweep"), "-c",
+                                     "0.5", "--truth", truth]))
+    sweep_s = time.perf_counter() - t
+    if sw["n_calls"][0] <= 0:
+        raise AssertionError(f"the sweep called nothing: {sw}")
+    print(f"[tools] cli_make_demo wrote {demo}; eval.evaluate of the batch "
+          f"run: F1 {json.dumps(f1)}, {scores['truth_svs']} truth / "
+          f"{scores['called_svs']} called SVs; merge of batch + stream: "
+          f"{len(records)} records, {both} in both; view -c {region}: "
+          f"{n_view} reads; sweep -c 0.5: {sw['n_calls'][0]} calls, calling "
+          f"F1 {sw['calling_f1'][0]} in {sweep_s:.1f} s", flush=True)
+
+
 KERNELS = [
     # name, source, replaces, the report entry with its times
     ("haplotag_score", "duet_tpu_torch/csrc/haplotag_score.cu",
@@ -1328,6 +1561,10 @@ def main() -> int:
         phase_mesh(report, data, work)
         phase_profile(report, data, work)
         phase_multiprocess(report, data, work)
+        phase_train(report, work)
+        phase_snp_grid(report)
+        phase_crossover(report)
+        phase_tools(report, data, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if "jax" in sys.modules:

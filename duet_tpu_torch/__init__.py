@@ -15,7 +15,15 @@ to find:
                                I/O, native ingest, the simulator, contig
                                naming, logging, dispatch accounting) plus
                                per-stage device cost accounting
-- ``duet_tpu_torch.pipeline`` / ``cli`` — the batch pipeline and its CLI
+- ``duet_tpu_torch.pipeline`` / ``cli`` — the pipeline and its CLI
+- ``duet_tpu_torch.eval``    — the evaluation harness (P/R/F1 of a phased
+                               SV callset against a truth VCF)
+- ``duet_tpu_torch.tools``   — merge, view, the sweeps, the decision-tree
+                               and snp_grid evaluations, and the haplotag
+                               crossover timer
+- ``duet_tpu_torch.models.nn_snp`` also trains the neural SNP caller
+                               (``python -m duet_tpu_torch.models.nn_snp
+                               train``)
 
 The package stands alone: it imports nothing of ``duet_tpu`` and no JAX.
 Its copies keep duet_tpu's code verbatim but for imports and dropped JAX

@@ -21,6 +21,10 @@ stages see an identical ContigSnps contract.
 Weights: duet_tpu/models/weights/nn_snp_v2.npz, reproducibly trained by
 `python -m duet_tpu.models.nn_snp train <out.npz>` (fixed seeds, CPU-jax).
 A numpy forward twin (`apply_np`) pins device/host decision parity in tests.
+
+(In the port: the shipped weights are a copy of duet_tpu's, in
+``duet_tpu_torch/models/weights/``; ``python -m duet_tpu_torch.models.nn_snp
+train <out.npz>`` trains a new set on the card, ``models/nn_snp.py``.)
 """
 
 from __future__ import annotations
@@ -89,6 +93,27 @@ def extract_features(counts: np.ndarray, ref_codes: np.ndarray,
         axis=1).astype(np.float32)
 
 
+def init_params(seed: int = 0) -> dict[str, np.ndarray]:
+    rng = np.random.default_rng(seed)
+
+    def glorot(m, k):
+        s = np.sqrt(6.0 / (m + k))
+        return rng.uniform(-s, s, size=(m, k)).astype(np.float32)
+
+    return {
+        "W1": glorot(N_FEATURES, HIDDEN), "b1": np.zeros(HIDDEN, np.float32),
+        "W2": glorot(HIDDEN, HIDDEN), "b2": np.zeros(HIDDEN, np.float32),
+        "W3": glorot(HIDDEN, N_CLASSES), "b3": np.zeros(N_CLASSES, np.float32),
+    }
+
+
+def apply_np(params, x: np.ndarray) -> np.ndarray:
+    """Numpy forward twin (float32) — parity anchor for the jax path."""
+    h = np.maximum(x.astype(np.float32) @ params["W1"] + params["b1"], 0.0)
+    h = np.maximum(h @ params["W2"] + params["b2"], 0.0)
+    return h @ params["W3"] + params["b3"]
+
+
 _cached: dict[str, dict[str, np.ndarray]] = {}
 
 
@@ -98,6 +123,12 @@ def load_params(path: str | None = None) -> dict[str, np.ndarray]:
         with np.load(path) as z:
             _cached[path] = {k: z[k].astype(np.float32) for k in _PARAM_KEYS}
     return _cached[path]
+
+
+def save_params(path: str, params) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, **{k: np.asarray(params[k], np.float32)
+                      for k in _PARAM_KEYS})
 
 
 def candidate_sites(counts: np.ndarray, ref_codes: np.ndarray,
@@ -122,3 +153,71 @@ def candidate_sites(counts: np.ndarray, ref_codes: np.ndarray,
     pos = cand[keep].astype(np.int64)
     return (pos, alt_code[keep].astype(np.uint8), alt_count[keep],
             depth_all[pos])
+
+
+def _label_candidates(pos, alt_code, truth_pos, truth_alt, truth_gt):
+    """0 non-variant / 1 het / 2 hom, matched on position AND alt allele."""
+    labels = np.zeros(len(pos), dtype=np.int64)
+    if len(truth_pos) == 0:
+        return labels
+    order = np.argsort(truth_pos)
+    tp, ta = truth_pos[order], truth_alt[order]
+    tg = truth_gt[order].sum(axis=1)
+    j = np.searchsorted(tp, pos)
+    ok = (j < len(tp))
+    jc = np.minimum(j, len(tp) - 1)
+    hit = ok & (tp[jc] == pos) & (ta[jc] == alt_code)
+    labels[hit] = np.where(tg[jc[hit]] >= 2, 2, 1)
+    return labels
+
+
+def build_training_set(seeds=(11, 12, 13, 14),
+                       coverages=(4.0, 5.0, 6.0, 8.0, 12.0, 20.0, 30.0),
+                       error_rates=(0.01, 0.02, 0.035, 0.05),
+                       contig_len: int = 300_000):
+    """Simulate, pileup, window — (X, y) over seeds × coverage × error-rate
+    regimes (each seed draws one coverage and one error rate, round-robin,
+    so the corpus spans the operating envelope without a full grid)."""
+    import shutil
+    import tempfile
+
+    from duet_tpu_torch.models.snp_caller_host import (
+        SnpCallConfig, count_alleles, pileup_observations)
+    from duet_tpu_torch.sim.simulate import SimConfig, simulate_dataset
+
+    try:  # native decoder: the corpus build is reader-bound otherwise
+        from duet_tpu_torch.io.native_ingest import load_read_store_native \
+            as load_read_store
+    except Exception:
+        from duet_tpu_torch.io.readstore import load_read_store
+
+    xs, ys = [], []
+    cfg = SnpCallConfig()
+    jobs = [(seed, cov, error_rates[(i + j) % len(error_rates)])
+            for i, seed in enumerate(seeds)
+            for j, cov in enumerate(coverages)]
+    for seed, cov, err in jobs:
+            tmp = tempfile.mkdtemp(prefix="nn_snp_train_")
+            try:
+                sim = SimConfig(contigs={"chrT": contig_len}, seed=seed,
+                                coverage=cov, sub_error=err)
+                truth = simulate_dataset(tmp, sim)
+                store = load_read_store(os.path.join(tmp, "reads.bam"))
+                from duet_tpu_torch.io.fasta import FastaFile
+
+                ref = FastaFile(os.path.join(tmp, "ref.fa"))
+                codes = ref.fetch_codes("chrT")
+                cr = store.contigs["chrT"]
+                obs = pileup_observations(cr, cfg)
+                counts = count_alleles(obs[0], obs[1], obs[2], len(codes),
+                                       cfg.min_base_qual)
+                pos, alt_code, _, _ = candidate_sites(counts, codes)
+                feats = extract_features(counts, codes, pos, alt_code)
+                labels = _label_candidates(
+                    pos, alt_code, truth.snp_pos["chrT"],
+                    truth.snp_alt["chrT"], truth.snp_gt["chrT"])
+                xs.append(feats)
+                ys.append(labels)
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+    return np.concatenate(xs), np.concatenate(ys)

@@ -245,3 +245,34 @@ def test_nn_forward_on_card_matches_cpu(cuda_device):
         gpu = load_model(device=cuda_device)(x.to(cuda_device)).cpu()
         cpu = load_model()(x)
     assert torch.equal(gpu.argmax(1), cpu.argmax(1))
+
+
+def test_train_on_card(cuda_device, tmp_path, monkeypatch):
+    """Five training steps on the card on a small corpus: the model's
+    parameters live on the card, the loss is logged, and the saved .npz
+    loads to the same classes on the card as on the CPU."""
+    from duet_tpu_torch.models import nn_snp
+    from duet_tpu_torch.models.nn_snp_host import build_training_set
+
+    X, y = build_training_set(seeds=(11,), coverages=(8.0,),
+                              error_rates=(0.02,), contig_len=60_000)
+    monkeypatch.setattr(nn_snp, "build_training_set", lambda: (X, y))
+    seen = []
+    to_numpy = nn_snp.params_to_numpy
+
+    def record(model):
+        seen.extend(p.device for p in model.parameters())
+        return to_numpy(model)
+
+    monkeypatch.setattr(nn_snp, "params_to_numpy", record)
+    logs = []
+    out = str(tmp_path / "w.npz")
+    nn_snp.train(out, steps=5, device=cuda_device, log=logs.append)
+    assert len(seen) == 6 and all(d.type == "cuda" for d in seen)
+    assert [m.split(":")[0] for m in logs if m.startswith("step ")] == \
+        ["step 0", "step 4"]
+    x = torch.from_numpy(X)
+    with torch.no_grad():
+        gpu = nn_snp.load_model(out, cuda_device)(x.to(cuda_device)).cpu()
+        cpu = nn_snp.load_model(out)(x)
+    assert torch.equal(gpu.argmax(1), cpu.argmax(1))

@@ -10,6 +10,7 @@ its inflate, and both native readers reject a corrupt BGZF member.
 The port's dataclasses are classes of their own, so objects cross packages
 field by field (``_as``) and are compared field by field."""
 
+import ast
 import dataclasses
 import gzip
 import os
@@ -377,6 +378,110 @@ def test_shipped_weights_equal():
     for k in want:
         np.testing.assert_array_equal(got[k], want[k])
     assert t_decision.load_model() == j_decision.load_model()
+
+
+class _Normalise(ast.NodeTransformer):
+    """A module's AST with its imports dropped, ``duet_tpu_torch`` read as
+    ``duet_tpu`` in strings, and the names in `renames` read as their
+    duet_tpu counterparts."""
+
+    def __init__(self, renames):
+        self.renames = renames
+
+    def visit_Import(self, node):
+        return None
+
+    visit_ImportFrom = visit_Import
+
+    def visit_Name(self, node):
+        node.id = self.renames.get(node.id, node.id)
+        return node
+
+    def visit_Constant(self, node):
+        if isinstance(node.value, str):
+            node.value = node.value.replace("duet_tpu_torch", "duet_tpu")
+        return node
+
+
+def _top_level(path, renames=None):
+    """[(name, ast.dump)] of a module's top-level statements, without its
+    docstring and its imports."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    tree = _Normalise(renames or {}).visit(tree)
+    body = tree.body
+    if body and isinstance(body[0], ast.Expr) and \
+            isinstance(body[0].value, ast.Constant):
+        body = body[1:]
+    out = []
+    for node in body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            name = node.name
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            t = node.targets[0] if isinstance(node, ast.Assign) \
+                else node.target
+            name = t.id
+        elif isinstance(node, ast.If):
+            name = "__main__"
+        else:
+            name = type(node).__name__
+        out.append((name, ast.dump(node)))
+    return out
+
+
+# the port's copies of whole duet_tpu modules: path under both packages ->
+# (names read as duet_tpu's, top-level names whose code may differ, names
+# only the port has).  The named deviations: --device (snp_grid's
+# run_cell/main and its device call, haplotag_crossover's runners and
+# their device, the port's clock that synchronises the card) and the
+# patch target of pc_sweep and junction_sweep (the port's host phaser
+# holds PC_PER_MARGIN and ADAPTIVE_N1).
+MODULE_COPIES = {
+    "eval/__init__.py": ({}, (), ()),
+    "eval/evaluate.py": ({}, (), ()),
+    "eval/reference_semantics.py": ({}, (), ()),
+    "sim/cli_make_demo.py": ({}, (), ()),
+    "tools/__init__.py": ({}, (), ()),
+    "tools/merge.py": ({}, (), ()),
+    "tools/view.py": ({}, (), ()),
+    "tools/sweep.py": ({}, (), ()),
+    "tools/pc_sweep.py": ({"snp_phaser_host": "snp_phaser"}, (), ()),
+    "tools/junction_sweep.py": ({"snp_phaser_host": "snp_phaser"}, (), ()),
+    "tools/junction_diag.py": ({}, (), ()),
+    "tools/train_decision.py": ({}, (), ()),
+    "tools/snp_grid.py": ({}, ("run_cell", "main"), ()),
+    "tools/haplotag_crossover.py": ({}, ("run_multi", "main"), ("_clock",)),
+}
+
+
+@pytest.mark.parametrize("rel", list(MODULE_COPIES))
+def test_module_copy_is_verbatim_but_for_its_named_deviations(rel):
+    renames, differ, own = MODULE_COPIES[rel]
+    want = _top_level(os.path.join(REPO, "duet_tpu", rel))
+    got = [(n, d) for n, d in _top_level(
+        os.path.join(REPO, "duet_tpu_torch", rel), renames) if n not in own]
+    assert [n for n, _ in got] == [n for n, _ in want]
+    for (name, g), (_, w) in zip(got, want):
+        if name in differ:
+            assert g != w, f"{rel}: {name} no longer deviates"
+        else:
+            assert g == w, f"{rel}: {name} differs from duet_tpu's"
+
+
+def test_nn_snp_host_functions_are_duet_tpus():
+    """Every function of the port's nn_snp_host, the trainer's corpus
+    builder and its helpers included, is duet_tpu's nn_snp function of
+    that name but for imports."""
+    want = dict(_top_level(os.path.join(REPO, "duet_tpu", "models",
+                                        "nn_snp.py")))
+    got = _top_level(os.path.join(REPO, "duet_tpu_torch", "models",
+                                  "nn_snp_host.py"))
+    names = [n for n, _ in got]
+    for name in ("init_params", "apply_np", "save_params",
+                 "_label_candidates", "build_training_set"):
+        assert name in names
+    for name, dump in got:
+        assert dump == want[name], name
 
 
 @pytest.mark.parametrize("name", ["chr7", "7", "chrUn_x", "X"])

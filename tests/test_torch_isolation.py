@@ -1,9 +1,10 @@
 """The torch port stands alone: no module of ``duet_tpu_torch`` nor
-``chip_smoke.py`` imports the JAX package ``duet_tpu``, and a fresh
-interpreter that refuses duet_tpu and JAX simulates a dataset, runs the CLI
-end to end under --device-stages on and off, with --stream, with --mesh 2,2
-and as two emulated processes, and imports the bench and the smoke
-script."""
+``chip_smoke.py`` imports the JAX package ``duet_tpu``, JAX or optax, and a
+fresh interpreter that refuses duet_tpu and JAX simulates a dataset, runs
+the CLI end to end under --device-stages on and off, with --stream, with
+--mesh 2,2 and as two emulated processes, and imports the bench and the
+smoke script; another imports every module of the port and runs the
+evaluation and merge entry points."""
 
 import ast
 import glob
@@ -31,13 +32,16 @@ def _imported_modules(tree: ast.AST):
             yield node.lineno, node.module or ""
 
 
+BLOCKED = ("duet_tpu", "jax", "jaxlib", "ml_dtypes", "optax")
+
+
 @pytest.mark.parametrize("path", PORT_FILES)
 def test_no_import_of_duet_tpu(path):
     with open(os.path.join(REPO, path)) as f:
         tree = ast.parse(f.read(), path)
     bad = [(line, mod) for line, mod in _imported_modules(tree)
-           if mod == "duet_tpu" or mod.startswith("duet_tpu.")]
-    assert not bad, f"{path} imports the JAX package: {bad}"
+           if mod.split(".")[0] in BLOCKED]
+    assert not bad, f"{path} imports the JAX package or JAX: {bad}"
 
 
 # the CLI runs of each case: one run, or the two emulated processes of a
@@ -105,3 +109,64 @@ def test_cli_runs_with_duet_tpu_refused(tmp_path, mode):
         assert metrics["backends"]["haplotag"] == "mesh"
     if mode == "two-process":
         assert os.path.exists(os.path.join(out, "metrics.p1.json"))
+
+
+def test_every_module_imports_and_the_eval_tools_run_with_duet_tpu_refused(
+        tmp_path):
+    """Every module of the port imports in an interpreter that refuses
+    duet_tpu and JAX; there ``python -m duet_tpu_torch.sim.cli_make_demo``
+    writes a dataset, the CLI calls it on the host, and ``python -m
+    duet_tpu_torch.eval.evaluate`` and ``python -m
+    duet_tpu_torch.tools.merge`` run on the callset."""
+    data = str(tmp_path / "data")
+    out = str(tmp_path / "out")
+    merged = str(tmp_path / "merged.vcf")
+    runs = [("duet_tpu_torch.sim.cli_make_demo", [data, "--length", "60000"]),
+            ("duet_tpu_torch", [data + "/reads.bam", data + "/ref.fa", out,
+                                "--device", "cpu", "--device-stages", "off",
+                                "-t", "2"]),
+            ("duet_tpu_torch.eval.evaluate",
+             [out + "/phased_sv.vcf", data + "/truth.vcf"]),
+            ("duet_tpu_torch.tools.merge",
+             [out + "/phased_sv.vcf", data + "/truth.vcf", "-o", merged])]
+    script = textwrap.dedent(f"""
+        import importlib, importlib.abc, pkgutil, runpy, sys
+        BLOCKED = {BLOCKED!r}
+
+        class Refuse(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError("refused import of " + name)
+                return None
+
+        sys.meta_path.insert(0, Refuse())
+        import duet_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            duet_tpu_torch.__path__, "duet_tpu_torch.")
+            if not m.name.endswith(".__main__")]    # that one runs the CLI
+        for name in names:
+            importlib.import_module(name)
+        print("IMPORTED", len(names))
+        for module, argv in {runs!r}:
+            sys.argv = [module, *argv]
+            try:
+                runpy.run_module(module, run_name="__main__",
+                                 alter_sys=True)
+            except SystemExit as e:
+                assert e.code in (0, None), e.code
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in BLOCKED)
+        assert not loaded, loaded
+        print("STANDALONE_TOOLS_OK")
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-W", "ignore::RuntimeWarning",
+                           "-c", script], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "STANDALONE_TOOLS_OK" in proc.stdout
+    n_modules = int(proc.stdout.split("IMPORTED ", 1)[1].split()[0])
+    assert n_modules >= 60, n_modules
+    assert '"calling": {' in proc.stdout and "merged " in proc.stdout
+    with open(merged) as f:
+        assert f.readline().startswith("##fileformat=VCF")
