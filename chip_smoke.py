@@ -29,11 +29,26 @@ together).  Phases, each printing one line:
                 smoke BAM decoded by it (decode stats) and equal to the
                 Python reader's store;
   [pipeline on] the batch pipeline through the port's CLI with
-                --device-stages on (dense scorer), every stage on the device
-                and the ingest native;
+                --device-stages on (the dense scorer and its hand kernel),
+                every stage on the device and the ingest native;
   [pipeline off]  the same CLI with --device-stages off: byte-identical;
-  [pipeline sparse]  --device-stages on with the sparse COO scorer:
-                byte-identical to both;
+  [pipeline auto]  --device-stages auto, the default, twice in turns
+                with off: byte-identical to off, its recorded gates the
+                committed ones, and each stage's route the one those gates
+                give at the smoke's sizes (the read scoring with auto's
+                scorer, the sparse COO scatter, whose device cost stands
+                beside the dense route's); its median total beside off's
+                and on's;
+  [fresh]       the CLI as a user starts it, a process of its own a run,
+                off, auto, on, on, auto, off: byte-identical to off, each
+                run's total and stages (the card's first use in a process
+                included: the card starts, and the phasing kernels first
+                run, on a thread beside ingest);
+  [pileup split]  the device pileup's host side on the smoke store: the op
+                table, the host packers beside the payload packed on the
+                card (equal bytes), two steady grouped launches beside
+                [pipeline on]'s first use, the at-site pass serial and on
+                the pool;
   [stream]      --stream --device-stages on (contig-major, each contig's
                 reads scored by the batched kernel on its own): native
                 ingest, byte-identical to the batch run;
@@ -67,7 +82,14 @@ together).  Phases, each printing one line:
                 shipped, the shipped calls equal on card and CPU;
   [crossover]   tools.haplotag_crossover on the card (dense mode through
                 haplotag_score, sparse, multi-contig), outputs equal to
-                the host scorer's, with its timing rows;
+                the host scorer's, with its timing rows, and the dense
+                route's wall a launch split into its device phases and
+                the host's remainder;
+  [gates]       route_crossover at 2-3 sizes a stage (phasing, SV
+                clustering and the decision pass on a simulated contig's
+                signatures and callset, the pileup on a store and on one
+                contig): host and device routes equal, their times, the
+                gates they give;
   [tools]       the demo maker, eval.evaluate of the batch run, merge of
                 the batch and stream callsets, view -c and a sweep point.
 
@@ -77,10 +99,12 @@ kernel, kernel, plain); beside each kernel stand its bound (the larger of
 its bytes over the card's memory rate and its operations over the peak
 rate for their type) and one PyTorch library call on the same inputs (a
 float32 cuBLAS product; the port never calls it).
-Each path (the pipeline on, the stream, the resume, haplotag_score, the
-bench, --profile, each process of the multi-process run, the crossover
-tool) runs with the launch counts set to 0 just before it and read just
-after, and fails if a kernel of that path never launched.  The mesh path launches none: as in
+Each path (the pipeline on, the pipeline auto, the stream, the resume,
+haplotag_score, the bench, --profile, each process of the multi-process
+run, the crossover tool) runs with the launch counts set to 0 just before
+it and read just after, and fails if a kernel of that path never launched
+(auto's read scorer, the sparse COO scatter, launches none, and fails if
+it does).  The mesh path launches none: as in
 duet_tpu, its products are plain matmuls outside any kernel.  Any failure
 exits non-zero.  The second-to-last line is one JSON object describing the
 kernels; the last is {"ok": true, "device": {...}}.
@@ -743,6 +767,7 @@ def phase_ingest(report: dict, data: str) -> None:
             if not np.array_equal(getattr(got, f), getattr(cr, f)):
                 raise AssertionError(f"native ingest: {c}.{f} differs")
     n_reads = sum(c.n for c in store.contigs.values())
+    report["store"] = store
     print(f"[ingest] zlib route: <zlib.h> + {' '.join(native_ingest._LDFLAGS)}"
           f" (zlib {lib.zlibVersion().decode()}), library "
           f"{os.path.relpath(native_ingest._so_path())} ready in "
@@ -829,43 +854,232 @@ def phase_pipeline_off(report: dict, data: str, work: str) -> None:
         n_phased = sum(1 for ln in f if ln.strip() and not ln.startswith("#"))
     if n_phased == 0:
         raise AssertionError("the run phased no SV call")
+    report["pipeline_off"] = metrics
     print(f"[pipeline off] {n} artifacts byte-identical to the "
           f"device run ({n_phased} phased SV calls); host total "
           f"{metrics['total_s']} s, stages {json.dumps(metrics['stages'])}",
           flush=True)
 
 
-def phase_pipeline_sparse(report: dict, data: str, work: str) -> None:
-    """--device-stages on with duet_tpu's default scorer, the sparse COO
-    scatter: the same artifacts, and its haplotag cost beside the dense
-    kernel's."""
-    from duet_tpu_torch.models import snp_phaser
-    from duet_tpu_torch.ops import haplotag_kernel
+def _expected_auto_backends(report: dict, work: str, gates: dict) -> dict:
+    """The stage labels that auto's committed gates give at the smoke's
+    sizes: its read bases, each contig's signatures and allele-matrix
+    entries, and its SV calls."""
+    from duet_tpu_torch.io.vcf import parse_sv_vcf
+    from duet_tpu_torch.models.snp_caller_host import (SnpCallConfig,
+                                                       read_pileup_vcf)
+    from duet_tpu_torch.models.snp_phaser_host import build_allele_matrix
 
-    before = dict(haplotag_kernel.LAUNCHES)
-    snp_phaser.HAPLOTAG_DEVICE_MODE = "sparse"
-    try:
-        metrics = _run_cli(data, os.path.join(work, "sparse"), "on")
-    finally:
-        snp_phaser.HAPLOTAG_DEVICE_MODE = "dense"
-    if haplotag_kernel.LAUNCHES != before:
-        raise AssertionError("the sparse scorer launched a dense kernel")
-    if metrics["backends"]["haplotag"] != "device":
-        raise AssertionError(f"sparse haplotag ran on "
-                             f"{metrics['backends']['haplotag']}")
-    sparse = os.path.join(work, "sparse")
-    n = _compare_artifacts(sparse, os.path.join(work, "on"))
-    _compare_artifacts(sparse, os.path.join(work, "off"))
-    dense = report["pipeline_on"]
-    report["pipeline_sparse"] = metrics
-    print(f"[pipeline sparse] {n} artifacts byte-identical to the dense on "
-          f"run and to off; haplotag device_cost sparse "
-          f"{json.dumps(metrics['device_cost']['haplotag'])} vs dense "
-          f"{json.dumps(dense['device_cost']['haplotag'])}; snp_phasing "
-          f"stage {metrics['stages']['snp_phasing']} s vs dense "
-          f"{dense['stages']['snp_phasing']} s; total {metrics['total_s']} s "
-          f"vs dense {dense['total_s']} s; stages "
-          f"{json.dumps(metrics['stages'])}", flush=True)
+    def on(size, gate):
+        return gate is not None and size >= gate
+
+    def label(routes):
+        order = {"device": 0, "host": 1}
+        return "+".join(sorted(set(routes), key=order.get))
+
+    store = report["store"]
+    off = os.path.join(work, "off")
+    bases = sum(len(cr.seq) for cr in store.contigs.values())
+    k = {}
+    for contig, _, pos, _, _ in _smoke_signatures(store):
+        k[contig] = k.get(contig, 0) + len(pos)
+    snps = read_pileup_vcf(os.path.join(off, "snp_calling", "pileup.vcf.gz"))
+    nnz = {c: len(build_allele_matrix(store.contigs[c], s,
+                                      SnpCallConfig()).row)
+           for c, s in snps.items()}
+    calls = sum(len(v) for v in parse_sv_vcf(
+        os.path.join(off, "sv_calling", "variants.vcf"), False).values())
+    report["auto_sizes"] = {"pileup_bases": bases, "sv_signatures": k,
+                            "phasing_nnz": nnz, "decide_calls": calls}
+    # the default --snp-model auto keeps the pileup on the host
+    return {
+        "snp_pileup": report["pipeline_off"]["backends"]["snp_pileup"],
+        "sv_cluster": label("device" if on(v, gates[
+            "sv_cluster_min_signatures"]) else "host"
+                            for v in k.values() if v),
+        "phase_refine": label("device" if on(v, gates["phasing_min_nnz"])
+                              else "host" for v in nnz.values() if v),
+        "haplotag": "device" if on(sum(nnz.values()),
+                                   gates["phasing_min_nnz"]) else "host",
+        "sv_decide": "device" if on(calls, gates["decide_min_calls"])
+        else "host",
+    }
+
+
+def phase_pipeline_auto(report: dict, data: str, work: str) -> None:
+    """--device-stages auto, the default, in turns with off (off, auto,
+    auto, off): byte-identical to off, the gates it records are the
+    committed ones, each stage ran where those gates send the smoke's
+    sizes, and its median total stands beside off's and on's."""
+    from duet_tpu_torch.ops import haplotag_kernel
+    from duet_tpu_torch.pipeline import PipelineConfig
+
+    gates = PipelineConfig(bam="", reference="",
+                           output="").device_size_gates()
+    want = None
+    totals = {"auto": [], "off": [report["pipeline_off"]["total_s"]]}
+    for turn, mode in enumerate(("off", "auto", "auto", "off")):
+        out = os.path.join(work, f"{mode}{turn}")
+        _reset_launches()
+        metrics = _run_cli(data, out, mode)
+        counts = dict(haplotag_kernel.LAUNCHES)
+        totals[mode].append(metrics["total_s"])
+        n = _compare_artifacts(out, os.path.join(work, "off"))
+        if mode == "off":
+            continue
+        if metrics["device_size_gates"] != gates:
+            raise AssertionError(f"auto recorded the gates "
+                                 f"{metrics['device_size_gates']}, not "
+                                 f"{gates}")
+        want = want or _expected_auto_backends(report, work, gates)
+        if metrics["backends"] != want:
+            raise AssertionError(f"auto ran {metrics['backends']}, the "
+                                 f"gates predict {want} at "
+                                 f"{report['auto_sizes']}")
+        if want["haplotag"] == "device" and gates["haplotag_mode"] == "dense":
+            _require_launches(counts, ["haplotag_score"], "the auto pipeline")
+        elif counts["haplotag_score"]:
+            raise AssertionError("the sparse scorer launched a dense kernel")
+        report["pipeline_auto"] = metrics
+    metrics = report["pipeline_auto"]
+    on = report["pipeline_on"]
+    scorer = ""
+    if want["haplotag"] == "device":
+        scorer = (f"; haplotag device_cost {gates['haplotag_mode']} "
+                  f"{json.dumps(metrics['device_cost']['haplotag'])} against "
+                  f"on's dense {json.dumps(on['device_cost']['haplotag'])}, "
+                  f"snp_phasing {metrics['stages']['snp_phasing']} s against "
+                  f"{on['stages']['snp_phasing']} s")
+    auto_s = float(np.median(totals["auto"]))
+    best = min(float(np.median(totals["off"])), on["total_s"])
+    print(f"[pipeline auto] {n} artifacts byte-identical to off in each of "
+          f"2 runs; gates {json.dumps(gates)}; sizes "
+          f"{json.dumps(report['auto_sizes'])}; backends "
+          f"{json.dumps(metrics['backends'])} as the gates predict; "
+          f"haplotag_score launches {counts['haplotag_score']}{scorer}; "
+          f"totals auto {totals['auto']} s (median {auto_s:.4f}), off "
+          f"{totals['off']} s, on {on['total_s']} s: auto "
+          f"{auto_s / best:.3f} x the faster median; stages "
+          f"{json.dumps(metrics['stages'])}; device_cost "
+          f"{json.dumps(metrics['device_cost'])}", flush=True)
+
+
+def phase_fresh(report: dict, data: str, work: str) -> None:
+    """The CLI as a user starts it, one fresh process a run, in turns (off,
+    auto, on, on, auto, off): each run's artifacts byte-identical to
+    [pipeline off]'s, and its total, stages and backends, so that what the
+    card's first use in a process costs under auto and on shows."""
+    runs: dict = {"off": [], "auto": [], "on": []}
+    t = time.perf_counter()
+    for turn, mode in enumerate(("off", "auto", "on", "on", "auto", "off")):
+        out = os.path.join(work, f"fresh_{mode}{turn}")
+        t_run = time.perf_counter()
+        subprocess.run([sys.executable, "-m", "duet_tpu_torch",
+                        os.path.join(data, "reads.bam"),
+                        os.path.join(data, "ref.fa"), out,
+                        "--device-stages", mode], check=True,
+                       cwd=os.path.dirname(os.path.abspath(__file__)),
+                       stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+                       timeout=300)
+        process_s = time.perf_counter() - t_run
+        _compare_artifacts(out, os.path.join(work, "off"))
+        with open(os.path.join(out, "metrics.json")) as f:
+            m = json.load(f)
+        runs[mode].append({"process_s": round(process_s, 3),
+                           "total_s": m["total_s"], "stages": m["stages"],
+                           "backends": m["backends"]})
+    median = {mode: float(np.median([r["total_s"] for r in rs]))
+              for mode, rs in runs.items()}
+    report["fresh"] = runs
+    print(f"[fresh] the CLI in a process of its own a run, 6 runs in "
+          f"{time.perf_counter() - t:.1f} s, every run's artifacts "
+          f"byte-identical to off's; median totals {json.dumps(median)}: "
+          f"auto {median['auto'] / min(median['off'], median['on']):.3f} x "
+          f"the faster; runs {json.dumps(runs)}", flush=True)
+
+
+def phase_pileup_split(report: dict, data: str) -> None:
+    """The device pileup's host side on the smoke store, piece by piece:
+    the op table, the host packers the route used to run (their bytes held
+    against the payload now packed on the card), the grouped launch twice
+    (first use in [pipeline on]; these are steady), and the at-site pass
+    on one thread against the pool."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from duet_tpu_torch.io.fasta import FastaFile
+    from duet_tpu_torch.models.snp_caller import (_payload_on_device,
+                                                  call_snps_for_store)
+    from duet_tpu_torch.models.snp_caller_host import (SnpCallConfig,
+                                                       _at_site_obs,
+                                                       _nibble_pack,
+                                                       _pack_codes, _pow2,
+                                                       match_op_table)
+    from duet_tpu_torch.utils import devcost
+
+    store = report["store"]
+    fa = FastaFile(os.path.join(data, "ref.fa"))
+    codes = {c: fa.fetch_codes(c) for c in store.contigs}
+    cfg = SnpCallConfig(device=True)
+    dev = torch.device("cuda")
+    t = time.perf_counter()
+    lens = [match_op_table(cr, cfg.min_mapq)[2]
+            for cr in store.contigs.values()]
+    op_s = time.perf_counter() - t
+    reads = [(cr.seq, cr.qual) for cr in store.contigs.values()]
+    n_bases = sum(len(s) for s, _ in reads)
+    ref = np.concatenate(list(codes.values()))
+    Lw = _pow2(len(ref))
+    ns_pad = max(_pow2(n_bases), _pow2(int(sum(int(x.sum()) for x in lens))),
+                 2)
+    t = time.perf_counter()
+    packed = np.concatenate([_pack_codes(s, q, cfg.min_base_qual)
+                             for s, q in reads])
+    host = np.zeros(ns_pad // 2 + Lw, np.uint8)
+    _nibble_pack(packed, host)
+    host[ns_pad // 2:] = 4
+    host[ns_pad // 2:ns_pad // 2 + len(ref)] = ref
+    pack_s = time.perf_counter() - t
+    t = time.perf_counter()
+    payload = _payload_on_device(reads, ref, ns_pad, Lw, cfg.min_base_qual,
+                                 dev)
+    torch.cuda.synchronize()
+    payload_s = time.perf_counter() - t
+    if not np.array_equal(payload.cpu().numpy(), host):
+        raise AssertionError("the payload packed on the card differs from "
+                             "the host packers' bytes")
+    runs = []
+    for _ in range(2):
+        devcost.reset()
+        t = time.perf_counter()
+        snps, obs = call_snps_for_store(store, codes, cfg, threads=4,
+                                        device=dev)
+        wall = time.perf_counter() - t
+        runs.append({"wall_s": round(wall, 4),
+                     **devcost.snapshot()["snp_pileup"]})
+    t = time.perf_counter()
+    serial = [_at_site_obs(cr, cfg, snps[c].pos)
+              for c, cr in store.contigs.items()]
+    serial_s = time.perf_counter() - t
+    t = time.perf_counter()
+    with ThreadPoolExecutor(4) as ex:
+        pooled = list(ex.map(lambda c: _at_site_obs(store.contigs[c], cfg,
+                                                    snps[c].pos),
+                             store.contigs))
+    pool_s = time.perf_counter() - t
+    for a, b, c in zip(serial, pooled, obs.values()):
+        for x, y, z in zip(a, b, c):
+            if not (np.array_equal(x, y) and np.array_equal(x, z)):
+                raise AssertionError("the at-site passes differ")
+    first = report["pipeline_on"]["device_cost"]["snp_pileup"]
+    print(f"[pileup split] smoke store, {n_bases} bases: match_op_table "
+          f"{op_s:.4f} s; host packers (_pack_codes + _nibble_pack, the "
+          f"route's host work before) {pack_s:.4f} s against the payload "
+          f"packed on the card {payload_s:.4f} s (bytes equal); "
+          f"call_snps_for_store on the card, first use in [pipeline on] "
+          f"{json.dumps(first)}, then {json.dumps(runs)}; at-site pass "
+          f"serial {serial_s:.4f} s, pool of 4 {pool_s:.4f} s", flush=True)
 
 
 def phase_stream(report: dict, data: str, work: str) -> None:
@@ -1452,12 +1666,75 @@ def phase_crossover(report: dict) -> None:
                               "haplotag_crossover's dense mode")
             report["crossover_launches"] = counts["haplotag_score"]
     report["crossover"] = docs
+    split = _dense_launch_split(report)
     print(f"[crossover] haplotag_crossover --device cuda, outputs equal to "
           f"the host scorer's; haplotag_score launches "
           f"{report['crossover_launches']}; crossover nnz by mode "
           f"{json.dumps(docs[0]['crossover_nnz_by_mode'])}; rows "
           f"{json.dumps(docs[0]['rows'])}; --multi 2,4,8 --sizes 512 rows "
-          f"{json.dumps(docs[1]['rows'])} on {report['card']}", flush=True)
+          f"{json.dumps(docs[1]['rows'])}; the dense route at 800k nnz, per "
+          f"launch: {json.dumps(split)} on {report['card']}", flush=True)
+
+
+def _dense_launch_split(report: dict) -> dict:
+    """One dense scoring call at 800k nnz (after a first call), its wall
+    per launch split into the device phases devcost times (upload,
+    compute: the tiles built on the card and the launches, readback) and
+    the host's remainder, beside the kernel alone at the pipeline shape
+    ([kernel])."""
+    import torch
+
+    from duet_tpu_torch.models.snp_phaser import _haplotag_device
+    from duet_tpu_torch.ops import haplotag_kernel
+    from duet_tpu_torch.tools.haplotag_crossover import make_problem
+    from duet_tpu_torch.utils import devcost
+
+    dev = torch.device("cuda")
+    problem = make_problem(800_000)
+    _haplotag_device(*problem, mode="dense", device=dev)
+    devcost.reset()
+    _reset_launches()
+    t = time.perf_counter()
+    _haplotag_device(*problem, mode="dense", device=dev)
+    wall = time.perf_counter() - t
+    n = haplotag_kernel.LAUNCHES["haplotag_score"]
+    cost = devcost.snapshot()["haplotag"]
+    phases = cost["h2d_s"] + cost["compute_s"] + cost["d2h_s"]
+    return {"launches": n, "wall_ms": wall * 1e3 / n,
+            "h2d_ms": cost["h2d_s"] * 1e3 / n,
+            "compute_ms": cost["compute_s"] * 1e3 / n,
+            "d2h_ms": cost["d2h_s"] * 1e3 / n,
+            "host_ms": (wall - phases) * 1e3 / n,
+            "kernel_alone_ms": report["kernel"]["ms"]}
+
+
+GATE_SIZES = ["phasing=10000,50000,800000", "sv=4000,64000",
+              "decide=1000,16000", "pileup=500000,2000000"]
+
+
+def phase_gates(report: dict) -> None:
+    """route_crossover on the card at 2-3 sizes a stage: every stage's
+    host and device routes equal, their times, and the gates these rows
+    give beside the committed ones (derived from the full run's rows)."""
+    from duet_tpu_torch import route_crossover
+    from duet_tpu_torch.pipeline import PipelineConfig
+
+    argv = [a for s in GATE_SIZES for a in ("--sizes", s)]
+    t = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = route_crossover.main(argv)
+    if rc != 0:
+        raise AssertionError(f"route_crossover {argv} exited {rc}")
+    doc = json.loads(out.getvalue().strip().splitlines()[-1])
+    committed = PipelineConfig(bam="", reference="",
+                               output="").device_size_gates()
+    report["gates"] = doc
+    print(f"[gates] route_crossover {' '.join(argv)} in "
+          f"{time.perf_counter() - t:.1f} s, every stage's routes equal; "
+          f"gates of these rows {json.dumps(doc['gates'])}; committed "
+          f"{json.dumps(committed)}; rows {json.dumps(doc['rows'])} on "
+          f"{doc['card']}", flush=True)
 
 
 def phase_tools(report: dict, data: str, work: str) -> None:
@@ -1552,7 +1829,9 @@ def main() -> int:
         phase_ingest(report, data)
         phase_pipeline_on(report, data, work)
         phase_pipeline_off(report, data, work)
-        phase_pipeline_sparse(report, data, work)
+        phase_pipeline_auto(report, data, work)
+        phase_fresh(report, data, work)
+        phase_pileup_split(report, data)
         phase_stream(report, data, work)
         phase_resume(report, data, work)
         phase_phase_only(report, work)
@@ -1564,6 +1843,7 @@ def main() -> int:
         phase_train(report, work)
         phase_snp_grid(report)
         phase_crossover(report)
+        phase_gates(report)
         phase_tools(report, data, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)

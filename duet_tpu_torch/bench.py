@@ -168,8 +168,9 @@ def bench_e2e(megabases: float, device_stages: str,
     warm-up) and warm.  Reference-style per-stage wall-clock, pipeline
     reads/s and the warm run's per-stage device cost.
 
-    device_stages="auto" applies the JAX package's fast-link size gates;
-    "on" forces every stage's device route at any size."""
+    device_stages="auto" applies the size gates measured on the H100
+    (``PipelineConfig.*_H100_*``); "on" forces every stage's device route
+    at any size."""
     from duet_tpu_torch.pipeline import PipelineConfig, run_pipeline
     from duet_tpu_torch.sim import SimConfig, simulate_dataset
 

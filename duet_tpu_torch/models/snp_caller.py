@@ -1,12 +1,17 @@
 """Device glue of the SNP-calling stage, on torch.
 
-Port of the device branches of ``duet_tpu.models.snp_caller``.  The packers
-(``match_op_table``, ``_pack_codes``, ``_nibble_pack``), the host recount
-``_host_window``, the counting rule and the VCF writers are the port's
-copies in ``snp_caller_host``; the functions here are copies of its dispatch functions with
-the device lines changed to the torch kernel (``ops.pileup``) and the
-neural caller to the torch module (``models.nn_snp``).  `device` is the
-torch device a device route runs on.
+Port of the device branches of ``duet_tpu.models.snp_caller``.  The op
+table (``match_op_table``), the host recount ``_host_window``, the
+counting rule and the VCF writers are the port's copies in
+``snp_caller_host``; the functions here are copies of its dispatch
+functions with the device lines changed to the torch kernel
+(``ops.pileup``) and the neural caller to the torch module
+(``models.nn_snp``).  Two changes keep the device route's host side below
+the host route's: the read bases are packed into the kernel's payload on
+the device (``_payload_on_device``, the bytes of ``_pack_codes`` and
+``_nibble_pack``), and the at-site pass of several contigs runs on the
+thread pool, overlapping the launches (``_device_store``).  `device` is
+the torch device a device route runs on.
 """
 
 from __future__ import annotations
@@ -24,7 +29,6 @@ from duet_tpu_torch.models.snp_caller_host import (
     _assemble_snps,
     _at_site_obs,
     _host_window,
-    _nibble_pack,
     _pack_codes,
     _pow2,
     call_snps,
@@ -55,21 +59,63 @@ def call_snps_any(contig: str, counts: np.ndarray, ref_codes: np.ndarray,
     return call_snps(contig, counts, ref_codes, cfg)
 
 
+def _host_codes(reads, cfg: SnpCallConfig) -> np.ndarray:
+    """The 4-bit codes (``_pack_codes``) of `reads`, concatenated on the
+    host: the input of the host recounts."""
+    return np.concatenate([_pack_codes(seq, qual, cfg.min_base_qual)
+                           for seq, qual in reads])
+
+
+def _payload_on_device(reads, ref_window: np.ndarray, ns_pad: int, Lw: int,
+                       min_base_qual: int,
+                       device: torch.device) -> torch.Tensor:
+    """``payload_ref`` built on `device` from the reads' bases and
+    qualities: each base's 4-bit code (``_pack_codes``), two a byte, even
+    base index in the low nibble (``_nibble_pack``), zeros up to ns_pad / 2,
+    then the reference window padded with 4.  The same bytes the host
+    packers give, without their passes over every base on the host."""
+    from duet_tpu_torch.utils import devcost
+
+    codes = []
+    for seq, qual in reads:
+        seq_d, qual_d = devcost.put("snp_pileup", device, seq, qual)
+        if 0 <= min_base_qual <= 255:
+            passed = qual_d >= min_base_qual
+        else:
+            passed = torch.full_like(qual_d, min_base_qual <= 0,
+                                     dtype=torch.bool)
+        codes.append((passed.to(torch.uint8) << 3) | seq_d)
+    (ref_d,) = devcost.put("snp_pileup", device, ref_window)
+    code = torch.cat(codes)
+    if len(code) % 2:
+        code = torch.cat([code, code.new_zeros(1)])
+    half = ns_pad // 2
+    payload = torch.zeros(half + Lw, dtype=torch.uint8, device=device)
+    payload[:len(code) // 2] = code[0::2] | (code[1::2] << 4)
+    payload[half:] = 4                    # ref=4 padding never calls
+    payload[half:half + len(ref_window)] = ref_d
+    return payload
+
+
 def _device_window(contig: str, ref_window: np.ndarray, cfg: SnpCallConfig,
-                   rw, q0, ln, packed, Lw: int, max_sites: int, rats,
+                   rw, q0, ln, reads, Lw: int, max_sites: int, rats,
                    device: torch.device):
     """Mirrors ``duet_tpu.models.snp_caller._device_window``: ONE padded
     kernel launch for a window (possibly a group of concatenated contigs);
-    window-relative parts (pos, alt_code, is_het, depth, alt_count).  The
-    JAX package's host recounts stay: at the 2^30-byte payload bound and on
-    compaction overflow."""
+    window-relative parts (pos, alt_code, is_het, depth, alt_count).
+    `reads` lists the window's (seq, qual) base arrays in query order; the
+    payload is packed from them on the device (``_payload_on_device``).
+    The JAX package's host recounts stay: at the 2^30-byte payload bound
+    and on compaction overflow."""
     from duet_tpu_torch.ops.pileup import pileup_call_packed
     from duet_tpu_torch.utils import devcost, dispatch
 
-    if len(packed) >= 1 << 30:
+    n_bases = sum(len(seq) for seq, _ in reads)
+    if n_bases >= 1 << 30:
         # int32 bound: query offsets and the observation total index this
         # payload; past 2^30 bytes the padded offsets could cross 2^31
-        return _host_window(contig, ref_window, cfg, rw, q0, ln, packed)
+        return _host_window(contig, ref_window, cfg, rw, q0, ln,
+                            _host_codes(reads, cfg))
     af_num, af_den, hom_num, hom_den = rats
     total = int(ln.sum())
     total_pad = _pow2(max(total, 1))
@@ -83,22 +129,20 @@ def _device_window(contig: str, ref_window: np.ndarray, cfg: SnpCallConfig,
     ops4[2, n_ops] = total_pad - total
     ops4[3, :8] = (total, 0, cfg.min_depth,
                    af_num, af_den, hom_num, hom_den, cfg.min_alt_reads)
-    ns_pad = max(_pow2(max(len(packed), 1)), total_pad, 2)
-    payload_ref = np.zeros(ns_pad // 2 + Lw, np.uint8)
-    _nibble_pack(packed, payload_ref)
-    payload_ref[ns_pad // 2:] = 4                # ref=4 padding never calls
-    payload_ref[ns_pad // 2: ns_pad // 2 + len(ref_window)] = ref_window
+    ns_pad = max(_pow2(max(n_bases, 1)), total_pad, 2)
     dispatch.record("snp_pileup", "device")
-    d_ops4, d_payload = devcost.put("snp_pileup", device, ops4, payload_ref)
+    (d_ops4,) = devcost.put("snp_pileup", device, ops4)
     out_dev = devcost.run(
         "snp_pileup", device, lambda: pileup_call_packed(
-            d_ops4, d_payload, total=total_pad, length=Lw,
-            max_sites=max_sites))
+            d_ops4, _payload_on_device(reads, ref_window, ns_pad, Lw,
+                                       cfg.min_base_qual, device),
+            total=total_pad, length=Lw, max_sites=max_sites))
     out = devcost.get("snp_pileup", out_dev)
     m = int(out[0])
     if m > max_sites:
         # the fixed compaction overflowed: recount this window on the host
-        return _host_window(contig, ref_window, cfg, rw, q0, ln, packed)
+        return _host_window(contig, ref_window, cfg, rw, q0, ln,
+                            _host_codes(reads, cfg))
     site_idx, alt_code, is_het, depth, alt_count = out[1:].reshape(
         5, max_sites)
     return (site_idx[:m].astype(np.int64),
@@ -140,15 +184,14 @@ def call_snps_device(contig: str, cr, ref_codes: np.ndarray,
                 b1 = int((q0 + ln).max())
             else:
                 b0 = b1 = 0
-            packed = _pack_codes(cr.seq[b0:b1], cr.qual[b0:b1],
-                                 cfg.min_base_qual)
+            reads = [(cr.seq[b0:b1], cr.qual[b0:b1])]
             q0 = q0 - b0
             rw = s - lo
         else:
             rw, q0, ln = op_ref, op_q, op_len
-            packed = _pack_codes(cr.seq, cr.qual, cfg.min_base_qual)
+            reads = [(cr.seq, cr.qual)]
         part = _device_window(contig, ref_codes[lo:hi], cfg, rw, q0, ln,
-                              packed, Lw, max_sites, rats, device)
+                              reads, Lw, max_sites, rats, device)
         parts.append((part[0] + lo, *part[1:]))
     return _assemble_snps(contig, parts, ref_codes)
 
@@ -160,45 +203,47 @@ def call_snps_device_grouped(items, cfg: SnpCallConfig,
     """Mirrors ``duet_tpu.models.snp_caller.call_snps_device_grouped``:
     small contigs are concatenated along the reference axis into shared
     launches; contigs longer than half a window keep their own."""
-    out: dict[str, ContigSnps] = {}
+    return dict(_grouped_launches(items, cfg, window, device))
+
+
+def _grouped_launches(items, cfg: SnpCallConfig, window: int,
+                      device: torch.device):
+    """``call_snps_device_grouped``'s launches in order, yielding each
+    contig's (name, ContigSnps) as soon as its launch returns."""
     group: list[tuple] = []
     group_L = 0
     group_bytes = 0
     rats = (*_as_rational(cfg.min_af), *_as_rational(cfg.hom_af))
 
-    def flush() -> None:
-        nonlocal group_L, group_bytes
-        if not group:
-            return
+    def flush():
         if len(group) == 1:
             c, cr, ref = group[0]
-            out[c] = call_snps_device(c, cr, ref, cfg, window, device)
-        else:
-            _launch_group(group, cfg, rats, out, device)
-        group.clear()
-        group_L = 0
-        group_bytes = 0
+            return [(c, call_snps_device(c, cr, ref, cfg, window, device))]
+        return _launch_group(group, cfg, rats, device)
 
     for c, cr, ref in items:
         L = len(ref)
         if L > window // 2 or len(cr.seq) >= 1 << 29:
-            out[c] = call_snps_device(c, cr, ref, cfg, window, device)
+            yield c, call_snps_device(c, cr, ref, cfg, window, device)
             continue
         if group and (_pow2(group_L + L) > window
                       or group_bytes + len(cr.seq) >= 1 << 29):
-            flush()
+            yield from flush()
+            group.clear()
+            group_L = 0
+            group_bytes = 0
         group.append((c, cr, ref))
         group_L += L
         group_bytes += len(cr.seq)
-    flush()
-    return out
+    if group:
+        yield from flush()
 
 
-def _launch_group(group, cfg: SnpCallConfig, rats, out: dict,
-                  device: torch.device) -> None:
+def _launch_group(group, cfg: SnpCallConfig, rats,
+                  device: torch.device) -> list[tuple[str, ContigSnps]]:
     """Mirrors ``duet_tpu.models.snp_caller._launch_group``: ONE launch
     for several concatenated contigs, sites split back per contig."""
-    rw_all, q0_all, ln_all, packed_all, ref_all, offs = [], [], [], [], [], []
+    rw_all, q0_all, ln_all, reads, ref_all, offs = [], [], [], [], [], []
     ref_off = 0
     ns_off = 0
     for c, cr, ref in group:
@@ -212,7 +257,7 @@ def _launch_group(group, cfg: SnpCallConfig, rats, out: dict,
         rw_all.append(op_ref + ref_off)
         q0_all.append(op_q + ns_off)
         ln_all.append(op_len)
-        packed_all.append(_pack_codes(cr.seq, cr.qual, cfg.min_base_qual))
+        reads.append((cr.seq, cr.qual))
         ref_all.append(ref)
         offs.append(ref_off)
         ref_off += L
@@ -222,15 +267,16 @@ def _launch_group(group, cfg: SnpCallConfig, rats, out: dict,
     part = _device_window(
         "+".join(c for c, _, _ in group), np.concatenate(ref_all), cfg,
         np.concatenate(rw_all), np.concatenate(q0_all),
-        np.concatenate(ln_all), np.concatenate(packed_all),
-        Lw, max_sites, rats, device)
+        np.concatenate(ln_all), reads, Lw, max_sites, rats, device)
     pos = part[0]
     bounds = np.searchsorted(pos, offs + [ref_off])
+    out = []
     for k, (c, cr, ref) in enumerate(group):
         sl = slice(int(bounds[k]), int(bounds[k + 1]))
-        out[c] = _assemble_snps(
+        out.append((c, _assemble_snps(
             c, [(pos[sl] - offs[k], part[1][sl], part[2][sl],
-                 part[3][sl], part[4][sl])], ref)
+                 part[3][sl], part[4][sl])], ref)))
+    return out
 
 
 def call_contig_snps(contig: str, cr, ref_codes: np.ndarray,
@@ -291,11 +337,7 @@ def call_snps_for_store(store: ReadStore, ref_codes: dict[str, np.ndarray],
                    for c, cr in work}
         return snps_out, obs_out
     if cfg.device and cfg.model in ("counts", "auto") and len(work) > 1:
-        snps_out = call_snps_device_grouped(
-            [(c, cr, ref_codes[c]) for c, cr in work], cfg, device=device)
-        obs_out = {c: _at_site_obs(cr, cfg, snps_out[c].pos)
-                   for c, cr in work}
-        return snps_out, obs_out
+        return _device_store(work, ref_codes, cfg, threads, device)
 
     def one(item):
         contig, cr = item
@@ -312,4 +354,25 @@ def call_snps_for_store(store: ReadStore, ref_codes: dict[str, np.ndarray],
         results = list(map(one, work))
     snps_out = {c: s for c, s, _ in results}
     obs_out = {c: o for c, _, o in results}
+    return snps_out, obs_out
+
+
+def _device_store(work, ref_codes: dict[str, np.ndarray], cfg: SnpCallConfig,
+                  threads: int, device: torch.device):
+    """The grouped device pileup of several contigs, each contig's at-site
+    pass (``_at_site_obs``, native) started on a pool of `threads` as soon
+    as its launch returns, so it overlaps the launches after it, as the
+    host route's pool runs it."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    crs = dict(work)
+    snps_out: dict[str, ContigSnps] = {}
+    pending = {}
+    with ThreadPoolExecutor(max(threads, 1)) as ex:
+        for c, snps in _grouped_launches(
+                [(c, cr, ref_codes[c]) for c, cr in work], cfg,
+                DEVICE_PILEUP_WINDOW, device):
+            snps_out[c] = snps
+            pending[c] = ex.submit(_at_site_obs, crs[c], cfg, snps.pos)
+        obs_out = {c: pending[c].result() for c, _ in work}
     return snps_out, obs_out

@@ -13,9 +13,10 @@ packers' two uploads (``models.snp_caller_host``):
                             base, bit 3 the host-evaluated qual-pass bit),
                             then L reference codes (4 = never call)
 
-Each lane of the static `total` maps to its op through a scatter-mark plus
-cumsum, the nibbles decode to (position, base) keys, an int32 scatter-add
-counts them into the (L, 4) histogram, and the called sites are compacted
+Each lane of the static `total` maps to its op (a binary search of the
+ops' cumulative lengths, equal to the JAX kernel's scatter-mark cumsum),
+the nibbles decode to (position, base) keys, an int32 scatter-add counts
+them into the (L, 4) histogram, and the called sites are compacted
 into one flat int32 readback of O(max_sites).  Integer counting has one
 answer, so the output is bit-identical to the JAX kernel and the host path.
 
@@ -30,14 +31,18 @@ import torch
 _I32 = torch.int32
 
 
-def _hist_counts(key: torch.Tensor, length: int) -> torch.Tensor:
+def _hist_counts(key: torch.Tensor, length: int,
+                 bins: torch.Tensor | None = None) -> torch.Tensor:
     """(length, 4) int32 histogram of `key` = pos*4 + base; keys outside
-    [0, 4*length) land in the sentinel bin, which is sliced away."""
+    [0, 4*length) land in the sentinel bin, which is sliced away.  `bins`,
+    the (4*length + 1,) bins of an earlier call, accumulates the keys of
+    several calls."""
     sentinel = length * 4
     key = torch.where((key < 0) | (key > sentinel), sentinel, key)
-    counts = torch.zeros(sentinel + 1, dtype=_I32, device=key.device)
-    counts.index_add_(0, key.long(), torch.ones_like(key, dtype=_I32))
-    return counts[:sentinel].reshape(length, 4)
+    if bins is None:
+        bins = torch.zeros(sentinel + 1, dtype=_I32, device=key.device)
+    bins.index_add_(0, key.long(), torch.ones_like(key, dtype=_I32))
+    return bins[:sentinel].reshape(length, 4)
 
 
 def call_sites(counts, ref_codes, min_depth, af_num, af_den, hom_num,
@@ -87,6 +92,11 @@ def pileup_counts(positions: torch.Tensor, bases: torch.Tensor,
     return _hist_counts(key, length)
 
 
+# lanes expanded at once: bounds the per-lane temporaries (int32, 64 MiB
+# each) whatever the window's observation count
+LANE_CHUNK = 1 << 24
+
+
 def packed_window_body(ops4: torch.Tensor, payload_ref: torch.Tensor, *,
                        total: int, length: int,
                        max_sites: int) -> torch.Tensor:
@@ -96,7 +106,13 @@ def packed_window_body(ops4: torch.Tensor, payload_ref: torch.Tensor, *,
     the cumulative length covers `total` exactly, pad lanes masked by
     lane < n_real.  The single-device caller (as ``pileup_call_packed``)
     and the mesh's per-shard pileup (``parallel.shard_pileup``) run this
-    one function, so the sharded path is the same math by construction."""
+    one function, so the sharded path is the same math by construction.
+
+    The lanes go LANE_CHUNK at a time, each counted into one histogram;
+    a lane's op is the number of ops that end at or before it (a binary
+    search of the cumulative lengths: zero-length ops end where they start,
+    so they are passed over), as the JAX kernel's scatter-mark cumsum
+    gives it."""
     op_ref, op_q, op_len = ops4[0], ops4[1], ops4[2]
     params = ops4[3]
     n_real, min_depth = params[0], params[2]
@@ -106,26 +122,25 @@ def packed_window_body(ops4: torch.Tensor, payload_ref: torch.Tensor, *,
     payload = payload_ref[:nb]
     ref_codes = payload_ref[nb:]
     dev = ops4.device
-    # lane -> op: mark each op's first lane (zero-length ops stack their
-    # marks; starts at or past `total` are dropped), then cumsum the marks
-    cum = torch.cumsum(op_len, 0, dtype=_I32)
-    first_lane = cum - op_len
-    lane = torch.arange(total, dtype=_I32, device=dev)
-    marks = torch.zeros(total, dtype=_I32, device=dev)
-    in_range = first_lane < total
-    marks.index_add_(0, first_lane[in_range].long(),
-                     torch.ones_like(first_lane[in_range]))
-    seg = torch.clamp(torch.cumsum(marks, 0, dtype=_I32) - 1,
-                      0, ops4.shape[1] - 1).long()
-    within = lane - first_lane[seg]
-    pos = op_ref[seg] + within
-    qidx = op_q[seg] + within
-    byte = payload[torch.clamp(qidx >> 1, 0, nb - 1).long()].to(_I32)
-    nib = (byte >> ((qidx & 1) << 2)) & 0xF
-    base = nib & 7
-    keep = (base < 4) & ((nib >> 3) > 0) & (lane < n_real)
-    key = torch.where(keep, pos * 4 + base, length * 4)
-    counts = _hist_counts(key, length)
+    ends = torch.cumsum(op_len, 0, dtype=_I32)
+    first_lane = ends - op_len
+    last_op = ops4.shape[1] - 1
+    sentinel = length * 4
+    bins = torch.zeros(sentinel + 1, dtype=_I32, device=dev)
+    counts = bins[:sentinel].reshape(length, 4)
+    for l0 in range(0, total, LANE_CHUNK):
+        lane = torch.arange(l0, min(l0 + LANE_CHUNK, total), dtype=_I32,
+                            device=dev)
+        seg = torch.clamp(torch.searchsorted(ends, lane, right=True,
+                                             out_int32=True), max=last_op)
+        within = lane - first_lane[seg]
+        qidx = op_q[seg] + within
+        byte = payload[torch.clamp(qidx >> 1, 0, nb - 1)].to(_I32)
+        nib = (byte >> ((qidx & 1) << 2)) & 0xF
+        base = nib & 7
+        keep = (base < 4) & ((nib >> 3) > 0) & (lane < n_real)
+        key = torch.where(keep, (op_ref[seg] + within) * 4 + base, sentinel)
+        _hist_counts(key, length, bins)
     is_site, is_het, alt_code, depth, alt_count = call_sites(
         counts, ref_codes, min_depth, af_num, af_den, hom_num, hom_den,
         min_alt)

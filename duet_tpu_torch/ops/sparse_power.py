@@ -143,6 +143,23 @@ def _score(row, col, av, phase, block_id, n_reads: int, n_sites: int):
     return hap, pc, best_block, overflow
 
 
+def warm_up(device: torch.device) -> None:
+    """Run ``_refine`` and ``_score`` once on an 8-entry matrix on
+    `device`, with the dtypes the pipeline gives them, and wait for them:
+    a process's first launch of each torch kernel loads it, and this lets a
+    caller pay for that before its first phasing call.  Nothing is recorded
+    (no dispatch, no device cost)."""
+    from duet_tpu_torch.device import synchronize
+
+    n = 8
+    idx = torch.arange(n, dtype=torch.int32, device=device)
+    ones = torch.ones(n, dtype=torch.float32, device=device)
+    _refine(idx, idx, ones, ones, ones > 0, 2, n, n)
+    bins = torch.zeros(n + 1, dtype=torch.int32, device=device)
+    _score(idx, idx, idx, bins, bins, n, n)
+    synchronize(device)
+
+
 def _check_blocks(am, block_id: np.ndarray) -> None:
     """The scorer's invariant: every observed site lies in a phase-set
     block (block -1 marks sites with no observations)."""

@@ -3,17 +3,19 @@
 Run as ``python -m duet_tpu_torch.stream_scale``.  It simulates a dataset
 with contigs at the lengths of GRCh38's chr20 and chr21 (64,444,167 and
 46,709,983 bp) at 20x (seed 5), then runs the port's CLI on it twice under
-``--device-stages on``: the batch run, then ``--stream``.  Each run is a
-process of its own, so that each reports its own peak memory.  It prints
-one line per run (wall, ``total_s``, stage seconds, ``peak_rss_mb``,
-``stage_peak_rss_mb``, the ingest backend), checks that the two runs wrote
-byte-identical artifacts, and prints one JSON object with all of it as the
-last line.  It fails if the artifacts differ.
+``--device-stages`` (``on`` by default): the batch run, then ``--stream``.
+Each run is a process of its own, so that each reports its own peak
+memory.  It prints one line per run (wall, ``total_s``, stage seconds,
+``peak_rss_mb``, ``stage_peak_rss_mb``, the ingest backend, the stage
+backends and auto's gates), checks that the two runs wrote byte-identical
+artifacts, and prints one JSON object with all of it as the last line.  It
+fails if the artifacts differ.
 
 Options: ``--contigs NAME:LENGTH,...`` (a smaller run), ``--device`` (cuda
-by default; cpu runs the same code on the host), ``--work DIR`` (kept, with
-the data, for further runs; by default a temporary directory, removed at
-the end).
+by default; cpu runs the same code on the host), ``--device-stages
+on|auto|off``, ``--work DIR`` (kept, with the data, for further runs,
+which reuse the data it holds and simulate nothing; by default a
+temporary directory, removed at the end).
 """
 
 from __future__ import annotations
@@ -56,10 +58,10 @@ def _card() -> str | None:
     return smi.stdout.strip().splitlines()[0]
 
 
-def _run(data: str, out: str, device: str, *flags: str) -> dict:
+def _run(data: str, out: str, device: str, stages: str, *flags: str) -> dict:
     cmd = [sys.executable, "-m", "duet_tpu_torch",
            os.path.join(data, "reads.bam"), os.path.join(data, "ref.fa"),
-           out, "--device", device, "--device-stages", "on", *flags]
+           out, "--device", device, "--device-stages", stages, *flags]
     t = time.perf_counter()
     subprocess.run(cmd, check=True, stdout=subprocess.DEVNULL)
     wall = time.perf_counter() - t
@@ -73,6 +75,7 @@ def _run(data: str, out: str, device: str, *flags: str) -> dict:
             "ingest": ingest, "reads": m["counts"]["reads"],
             "snp_sites": m["counts"]["snp_sites"],
             "backends": m["backends"],
+            "device_size_gates": m.get("device_size_gates"),
             "device_cost_haplotag": m["device_cost"].get("haplotag")}
 
 
@@ -80,6 +83,8 @@ def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(prog="python -m duet_tpu_torch.stream_scale")
     p.add_argument("--contigs", default=GRCH38)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--device-stages", default="on",
+                   choices=["on", "auto", "off"])
     p.add_argument("--work", default=None)
     args = p.parse_args(argv)
 
@@ -90,16 +95,20 @@ def main(argv: list[str] | None = None) -> int:
     work = args.work or tempfile.mkdtemp(prefix="duet_stream_scale_")
     try:
         data = os.path.join(work, "data")
-        t = time.perf_counter()
-        simulate_dataset(data, SimConfig(contigs=contigs, coverage=COVERAGE,
-                                         seed=SEED))
-        sim_s = time.perf_counter() - t
-        print(f"[sim] {contigs} at {COVERAGE}x (seed {SEED}) in "
-              f"{sim_s:.1f} s", flush=True)
+        sim_s = None
+        if os.path.exists(os.path.join(data, "reads.bam")):
+            print(f"[sim] reusing {data}", flush=True)
+        else:
+            t = time.perf_counter()
+            simulate_dataset(data, SimConfig(contigs=contigs,
+                                             coverage=COVERAGE, seed=SEED))
+            sim_s = time.perf_counter() - t
+            print(f"[sim] {contigs} at {COVERAGE}x (seed {SEED}) in "
+                  f"{sim_s:.1f} s", flush=True)
         runs = {}
         for name, flags in (("batch", ()), ("stream", ("--stream",))):
             runs[name] = _run(data, os.path.join(work, name), args.device,
-                              *flags)
+                              args.device_stages, *flags)
             print(f"[{name}] {json.dumps(runs[name])}", flush=True)
         batch, stream = (os.path.join(work, n) for n in ("batch", "stream"))
         if _artifacts(batch) != _artifacts(stream):
@@ -111,6 +120,7 @@ def main(argv: list[str] | None = None) -> int:
                                      "stream")
         print(json.dumps({"card": _card(), "contigs": contigs,
                           "coverage": COVERAGE, "seed": SEED,
+                          "device_stages": args.device_stages,
                           "sim_s": sim_s, "identical_artifacts":
                           len(_artifacts(batch)), **runs}))
     finally:

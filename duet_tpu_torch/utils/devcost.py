@@ -13,7 +13,9 @@ call site splits its work into three timed phases:
 
 The synchronize after each phase serializes transfer and compute; that is
 the price of attributing them.  On the CPU the phases are plain copies and
-calls.  Thread-safe: the stages fan contigs out over thread pools.
+calls.  Thread-safe: the stages fan contigs out over thread pools, and a
+stage's seconds are summed over its threads, so with several threads in
+flight they can exceed the stage's wall time.
 """
 
 from __future__ import annotations

@@ -307,8 +307,12 @@ CONSTANTS = [
                   "N_WINDOW")),
     (j_dispatch, t_dispatch, ("STAGES",)),
     (j_devcost, t_devcost, ("_FIELDS",)),
+    # named deviations: auto's gates are the port's own, measured on the
+    # H100 (route_crossover, PERF.md §5), where duet_tpu's are its TPU
+    # fast-link values — (duet_tpu's name, the port's name, port's value)
     (j_pipeline.PipelineConfig, t_pipeline.PipelineConfig,
-     ("PHASING_GATE_FAST_NNZ", "SV_GATE_FAST_K")),
+     (("PHASING_GATE_FAST_NNZ", "PHASING_GATE_H100_NNZ", 49_995),
+      ("SV_GATE_FAST_K", "SV_GATE_H100_K", 64_000))),
 ]
 
 
@@ -316,14 +320,27 @@ CONSTANTS = [
                          ids=[c[1].__name__ for c in CONSTANTS])
 def test_module_constants_equal(j_mod, t_mod, names):
     for name in names:
-        assert getattr(t_mod, name) == getattr(j_mod, name), name
+        if isinstance(name, tuple):
+            j_name, t_name, value = name
+            assert getattr(t_mod, t_name) == value, t_name
+            assert getattr(j_mod, j_name) != value, j_name
+        else:
+            assert getattr(t_mod, name) == getattr(j_mod, name), name
 
 
 def test_haplotag_device_mode_is_the_ports_own():
-    """The one constant that differs on purpose: the port's default
-    scorer is its dense hand kernel (ROADMAP.md)."""
+    """The scorer is the port's own choice: auto's is the one that was
+    faster past the phasing gate on the H100 (the sparse COO scatter, as
+    duet_tpu's), and --device-stages on forces the dense route of the hand
+    kernel."""
     assert j_phaser.HAPLOTAG_DEVICE_MODE == "sparse"
-    assert t_phaser_dev.HAPLOTAG_DEVICE_MODE == "dense"
+    assert t_phaser_dev.HAPLOTAG_DEVICE_MODE == "sparse"
+    paths = dict(bam="x.bam", reference="x.fa", output="out")
+    assert t_pipeline.PipelineConfig(device_stages="on", **paths
+                                     ).haplotag_mode() == "dense"
+    for stages in ("auto", "off"):
+        assert t_pipeline.PipelineConfig(device_stages=stages, **paths
+                                         ).haplotag_mode() == "sparse"
 
 
 @pytest.mark.parametrize("j_cls,t_cls", [
@@ -340,6 +357,9 @@ def test_config_fields_and_defaults_equal(j_cls, t_cls):
 
 
 def test_pipeline_config_methods_agree():
+    """The configs agree under on.  Under auto and off the size gates are
+    the named deviation (read under off only to be recorded): the port's
+    are the H100's, duet_tpu's its TPU fast-link values."""
     paths = dict(bam="x.bam", reference="x.fa", output="out")
     for stages in ("auto", "on", "off"):
         j = j_pipeline.PipelineConfig(device_stages=stages, **paths)
@@ -347,9 +367,25 @@ def test_pipeline_config_methods_agree():
                                       **paths)
         assert dataclasses.asdict(t.snp_cfg()) == \
             dataclasses.asdict(j.snp_cfg())
-        assert dataclasses.asdict(t.sv_cfg()) == \
+        t_sv, j_sv = dataclasses.asdict(t.sv_cfg()), \
             dataclasses.asdict(j.sv_cfg())
-        assert t.phasing_device_min_nnz() == j.phasing_device_min_nnz()
+        if stages == "on":
+            assert t_sv == j_sv
+            assert t.phasing_device_min_nnz() == j.phasing_device_min_nnz()
+            continue
+        assert t_sv.pop("device_min_k") == 64_000 != j_sv.pop("device_min_k")
+        assert t_sv == j_sv
+        assert t.phasing_device_min_nnz() == 49_995 != \
+            j.phasing_device_min_nnz()
+    # auto on a card: the pileup and the decision pass stay on the host
+    # (their device routes never beat the host's outside its spread on the
+    # H100); on forces both
+    gpu = t_pipeline.PipelineConfig(device_stages="auto", device="cuda",
+                                    snp_model="counts", **paths)
+    assert gpu.DECIDE_GATE_H100_CALLS is None
+    assert not gpu.pileup_on_device() and not gpu.decide_on_device(10 ** 9)
+    on = t_pipeline.PipelineConfig(device_stages="on", device="cuda", **paths)
+    assert on.pileup_on_device() and on.decide_on_device(0)
 
 
 def test_cli_flags_equal():

@@ -131,7 +131,9 @@ def test_cuda_device_without_card(sim_dataset, tmp_path):
 
 def test_auto_gates_stay_on_host_for_cpu_device(sim_dataset, tmp_path):
     """'auto' uses the device only when it is a GPU: with --device cpu
-    every stage runs on the host, and the gates are recorded."""
+    every stage runs on the host, and the gates are recorded: the port's
+    H100 gates and scorer (a named deviation from duet_tpu's record of its
+    TPU fast-link gates, which has no pileup, decision or scorer entry)."""
     data, _, _ = sim_dataset
     out = str(tmp_path / "auto")
     run_pipeline(PipelineConfig(bam=os.path.join(data, "reads.bam"),
@@ -141,6 +143,18 @@ def test_auto_gates_stay_on_host_for_cpu_device(sim_dataset, tmp_path):
         metrics = json.load(f)
     assert metrics["backends"] == dict.fromkeys(STAGES, "host")
     assert metrics["device_size_gates"] == {
-        "sv_cluster_min_signatures": PipelineConfig.SV_GATE_FAST_K,
-        "phasing_min_nnz": PipelineConfig.PHASING_GATE_FAST_NNZ,
+        "pileup_min_bases": None, "sv_cluster_min_signatures": 64_000,
+        "phasing_min_nnz": 49_995, "decide_min_calls": None,
+        "haplotag_mode": "sparse",
         "h2d_probe_mb_s": None, "h2d_worst_put_s": None}
+    want = str(tmp_path / "jax")
+    jax_run(JaxConfig(bam=os.path.join(data, "reads.bam"),
+                      reference=os.path.join(data, "ref.fa"), output=want))
+    assert _artifacts(out) == _artifacts(want)
+    for name in _artifacts(want):
+        assert _read(os.path.join(out, name)) == \
+            _read(os.path.join(want, name)), name
+    with open(os.path.join(want, "metrics.json")) as f:
+        jax_gates = json.load(f)["device_size_gates"]
+    assert jax_gates["sv_cluster_min_signatures"] != 64_000
+    assert jax_gates["phasing_min_nnz"] != 49_995

@@ -38,7 +38,8 @@ def test_dense_device_scoring_matches_host(seed, window, halo, batch):
     am, phase, block_id, block_ps = refined_case(seed, 150, 90, 12, 0.05)
     host = sp._haplotag(am, phase, block_id, block_ps)
     got = tsp._haplotag_device(am, phase, block_id, block_ps, window=window,
-                               halo=halo, batch=batch, device=CPU)
+                               halo=halo, batch=batch, mode="dense",
+                               device=CPU)
     for h, d, name in zip(host, got, ("hap", "ps", "pc")):
         np.testing.assert_array_equal(d, h, err_msg=name)
 
@@ -52,7 +53,8 @@ def test_dense_scoring_with_phase_set_splits():
     block_ps = am.site_pos[::25] + 1
     host = sp._haplotag(am, phase, block_id, block_ps)
     assert len(np.unique(host[1][host[1] >= 0])) == len(block_ps)
-    got = tsp._haplotag_device(am, phase, block_id, block_ps, device=CPU)
+    got = tsp._haplotag_device(am, phase, block_id, block_ps, mode="dense",
+                               device=CPU)
     for h, d, name in zip(host, got, ("hap", "ps", "pc")):
         np.testing.assert_array_equal(d, h, err_msg=name)
 
@@ -67,7 +69,7 @@ def test_batched_dispatch_call_count():
     dispatch.reset()
     before = dict(haplotag_kernel.LAUNCHES)
     tsp._haplotag_device(am, phase, block_id, block_ps, window=16, halo=4,
-                         batch=16, device=CPU)
+                         batch=16, mode="dense", device=CPU)
     # 900 reads over ~8 windows -> >= 8 chunks in one launch; reads wider
     # than the halo take the host scorer
     assert dispatch.snapshot()["haplotag"]["device"] == 1
@@ -95,7 +97,7 @@ def test_overfull_window_falls_back_to_host():
     host = sp._haplotag(am, phase, block_id, block_ps)
     dispatch.reset()
     got = tsp._haplotag_device(am, phase, block_id, block_ps, window=4096,
-                               halo=256, device=CPU)
+                               halo=256, mode="dense", device=CPU)
     assert dispatch.snapshot()["haplotag"].get("host", 0) == 1
     for h, d, name in zip(host, got, ("hap", "ps", "pc")):
         np.testing.assert_array_equal(d, h, err_msg=name)

@@ -193,18 +193,35 @@ def test_device_gate_reads_the_combined_nnz(monkeypatch, mode):
 def test_pipeline_sparse_mode_matches_jax(sim_dataset, tmp_path,
                                           monkeypatch):
     """The port's pipeline with the sparse scorer (duet_tpu's default
-    route) writes duet_tpu's artifacts under --device-stages on."""
+    route, and auto's on the card) writes duet_tpu's --device-stages on
+    artifacts: auto with every gate open, its device routes on the CPU.
+    Under on, which forces the hand kernel's dense route, the scorer is
+    dense whatever HAPLOTAG_DEVICE_MODE says."""
     monkeypatch.setattr(tsp, "HAPLOTAG_DEVICE_MODE", "sparse")
+    for gate in ("SV_GATE_H100_K", "PHASING_GATE_H100_NNZ",
+                 "DECIDE_GATE_H100_CALLS"):
+        monkeypatch.setattr(PipelineConfig, gate, 0)
+    monkeypatch.setattr(PipelineConfig, "stages_on_device",
+                        lambda self: self.device_stages != "off")
     data, _, _ = sim_dataset
     paths = dict(bam=os.path.join(data, "reads.bam"),
                  reference=os.path.join(data, "ref.fa"))
     want, got = str(tmp_path / "jax"), str(tmp_path / "torch")
-    jax_run(JaxConfig(output=want, device_stages="on", **paths))
-    run_pipeline(PipelineConfig(output=got, device_stages="on", device="cpu",
-                                **paths))
+    jax_run(JaxConfig(output=want, device_stages="on", snp_model="counts",
+                      **paths))
+    cfg = PipelineConfig(output=got, device_stages="auto", device="cpu",
+                         snp_model="counts", **paths)
+    assert cfg.haplotag_mode() == "sparse"
+    assert PipelineConfig(output=got, device_stages="on", device="cpu",
+                          **paths).haplotag_mode() == "dense"
+    run_pipeline(cfg)
     assert _artifacts(got) == _artifacts(want)
     for name in _artifacts(want):
         assert _read(os.path.join(got, name)) == \
             _read(os.path.join(want, name)), name
     with open(os.path.join(got, "metrics.json")) as f:
-        assert json.load(f)["device_dispatch"]["haplotag"]["device"] == 1
+        metrics = json.load(f)
+    assert metrics["device_dispatch"]["haplotag"]["device"] == 1
+    # every gated stage on the device; auto keeps the pileup on the host
+    assert {s: b for s, b in metrics["backends"].items()
+            if b != "device"} == {"snp_pileup": "host"}
