@@ -58,6 +58,14 @@ together).  Phases, each printing one line:
                 tables: the same phased_sv.vcf;
   [flags]       --snp-model nn --haplotag-bam under on and under off: every
                 artifact byte-identical, the haplotagged BAMs included;
+                each mode's snp_phasing beside its run without
+                --haplotag-bam, the host's cores and -t;
+  [haplotag bam]  the haplotagged-BAM writer on each contig with [flags]'s
+                tags: encode, compress and index seconds and MB at -t's
+                default, one thread and every core, equal to the
+                pipeline's files,
+                and the per-read writer with its re-read index on one
+                contig (the same bytes);
   [bench]       `python -m duet_tpu_torch.bench`'s full run in process;
   [mesh]        the (dp, sp) mesh as logical shards of card 0: the sharded
                 phase-and-tag (2 x 2 and 1 x 4, sweeps 0 and 2) against the
@@ -91,7 +99,9 @@ together).  Phases, each printing one line:
                 contig): host and device routes equal, their times, the
                 gates they give;
   [tools]       the demo maker, eval.evaluate of the batch run, merge of
-                the batch and stream callsets, view -c and a sweep point.
+                the batch and stream callsets, view -c on a region and on
+                a whole contig (no end: equal to it bounded at its
+                length), and a sweep point.
 
 Every comparison of a kernel with its plain version is exact (torch.equal).
 Times are medians of CUDA-event timed launches taken in turns (plain,
@@ -1163,12 +1173,20 @@ def phase_phase_only(report: dict, work: str) -> None:
           f"{wall:.2f} s", flush=True)
 
 
+def _threads_default() -> int:
+    from duet_tpu_torch.cli import build_parser
+
+    return build_parser().get_default("threads")
+
+
 def phase_flags(report: dict, data: str, work: str) -> None:
     """--snp-model nn --haplotag-bam under on and under off: the same
-    artifacts, the per-contig haplotagged BAMs and their indexes included."""
+    artifacts, the per-contig haplotagged BAMs and their indexes included;
+    each mode's snp_phasing beside its run without --haplotag-bam."""
     from duet_tpu_torch.ops import haplotag_kernel
 
-    flags = ("--snp-model", "nn", "--haplotag-bam")
+    base = ("--snp-model", "nn")
+    flags = (*base, "--haplotag-bam")
     _reset_launches()
     on = _run_cli(data, os.path.join(work, "flags_on"), "on", *flags)
     counts = dict(haplotag_kernel.LAUNCHES)
@@ -1187,12 +1205,107 @@ def phase_flags(report: dict, data: str, work: str) -> None:
         raise AssertionError("--haplotag-bam wrote no BAM")
     n = _compare_artifacts(os.path.join(work, "flags_on"),
                            os.path.join(work, "flags_off"))
+    # the same modes without the flag, for the flag's cost in snp_phasing
+    plain = {mode: _run_cli(data, os.path.join(work, f"nn_{mode}"), mode,
+                            *base)["stages"]["snp_phasing"]
+             for mode in ("on", "off")}
+    cost = {mode: {"with": m["stages"]["snp_phasing"],
+                   "without": plain[mode],
+                   "flag_s": round(m["stages"]["snp_phasing"] - plain[mode],
+                                   4)}
+            for mode, m in (("on", on), ("off", off))}
+    report["flags_cost"] = cost
     print(f"[flags] {' '.join(flags)}: {n} artifacts byte-identical between "
           f"on and off, BAMs {bams} included; backends on "
           f"{json.dumps(on['backends'])}; haplotag_score launches "
-          f"{counts['haplotag_score']}; total on {on['total_s']} s, stages "
+          f"{counts['haplotag_score']}; snp_phasing s with and without "
+          f"--haplotag-bam {json.dumps(cost)} (host cores "
+          f"{os.cpu_count()}, affinity {len(os.sched_getaffinity(0))}, -t "
+          f"{_threads_default()}); total on {on['total_s']} s, stages "
           f"{json.dumps(on['stages'])}; off {off['total_s']} s, stages "
           f"{json.dumps(off['stages'])}", flush=True)
+
+
+def _per_read_bam(path: str, cr, haps: dict, lengths: dict) -> None:
+    """The haplotagged BAM as the writer wrote it before the column-wise
+    encoder: one BamRead a read through BamWriter, then the index read
+    back from the file (build_bai).  Kept here to time it beside the
+    writer the pipeline runs."""
+    from duet_tpu_torch.io.bam import (
+        BamHeader,
+        BamRead,
+        BamWriter,
+        write_bam_index,
+    )
+
+    length = lengths.get(cr.contig, 0)
+    header = BamHeader(
+        f"@HD\tVN:1.6\tSO:coordinate\n@SQ\tSN:{cr.contig}\tLN:{length}\n",
+        [cr.contig], [length])
+    with BamWriter(path, header) as w:
+        for i in range(cr.n):
+            t = haps.get(cr.names[i])
+            tags = {} if t is None else {"HP": t[0], "PC": t[2], "PS": t[1]}
+            flag = (0x10 if cr.strand[i] else 0) | \
+                (0x800 if cr.supp[i] else 0)
+            c0, c1 = cr.cigar_off[i], cr.cigar_off[i + 1]
+            cigar = np.stack([cr.cigar_ops[c0:c1].astype(np.int32),
+                              cr.cigar_lens[c0:c1]], axis=1)
+            s0, s1 = cr.seq_off[i], cr.seq_off[i + 1]
+            w.write(BamRead(cr.names[i], flag, 0, int(cr.starts[i]),
+                            int(cr.mapq[i]), cigar, cr.seq[s0:s1],
+                            cr.qual[s0:s1], tags))
+    write_bam_index(path)
+
+
+def phase_haplotag_bam(report: dict, work: str) -> None:
+    """The --haplotag-bam writer on each smoke contig, with the tags of
+    [flags]'s run under on: encode, compress and index seconds at -t's
+    default, at one thread and on every core, each BAM and .bai equal to
+    that run's; and the per-read writer with its re-read index on the
+    first contig."""
+    from duet_tpu_torch.pipeline import _write_haplotag_bam, read_haplotag_table
+
+    store = report["store"]
+    src = os.path.join(work, "flags_on", "snp_phasing")
+    out = os.path.join(work, "haplotag_bam")
+    os.makedirs(out)
+    threads = min(_threads_default(), os.cpu_count() or 1)
+    rows = {}
+    for contig, cr in store.contigs.items():
+        haps = read_haplotag_table(os.path.join(src,
+                                                f"{contig}.haplotags.tsv"))
+        row = {"reads": cr.n, "tagged": len(haps)}
+        for n in sorted({threads, 1, os.cpu_count() or 1}):
+            path = os.path.join(out, f"{contig}.t{n}.bam")
+            t = time.perf_counter()
+            split = _write_haplotag_bam(path, cr, haps, store.contig_lengths,
+                                        threads=n)
+            split["wall_s"] = time.perf_counter() - t
+            for ext in ("", ".bai"):
+                if _read(path + ext) != _read(os.path.join(
+                        src, f"{contig}.bam{ext}")):
+                    raise AssertionError(f"{contig}.bam{ext} at {n} threads "
+                                         "differs from the pipeline's")
+            row[f"threads_{n}"] = {k: round(v, 4) for k, v in split.items()
+                                   if k != "bytes"}
+            row["mb"] = round(split["bytes"] / 1e6, 2)
+        rows[contig] = row
+    first = next(iter(store.contigs))
+    path = os.path.join(out, f"{first}.per_read.bam")
+    t = time.perf_counter()
+    _per_read_bam(path, store.contigs[first], read_haplotag_table(
+        os.path.join(src, f"{first}.haplotags.tsv")), store.contig_lengths)
+    per_read_s = time.perf_counter() - t
+    for ext in ("", ".bai"):
+        if _read(path + ext) != _read(os.path.join(src, f"{first}.bam{ext}")):
+            raise AssertionError(f"the per-read writer's {first}.bam{ext} "
+                                 "differs")
+    report["haplotag_bam"] = rows
+    print(f"[haplotag bam] -t {threads} on {os.cpu_count()} cores, BAM and "
+          f".bai equal to [flags]'s at every thread count; per contig "
+          f"{json.dumps(rows)}; the per-read writer and re-read index on "
+          f"{first}: {per_read_s:.3f} s, the same bytes", flush=True)
 
 
 def phase_bench(report: dict) -> None:
@@ -1780,6 +1893,16 @@ def phase_tools(report: dict, data: str, work: str) -> None:
     n_view = int(run(view.main, ["-c", bam, region]))
     if n_view <= 0:
         raise AssertionError(f"view -c {region} counted {n_view}")
+    # a region without an end on the demo's 200 kb contig: the whole
+    # contig, as bounded at its length
+    demo_bam = os.path.join(demo, "reads.bam")
+    t = time.perf_counter()
+    n_open = int(run(view.main, ["-c", demo_bam, "chr21"]))
+    open_s = time.perf_counter() - t
+    n_bounded = int(run(view.main, ["-c", demo_bam, "chr21:1-200000"]))
+    if n_open != n_bounded or n_open <= 0:
+        raise AssertionError(f"view -c chr21 counted {n_open}, the bounded "
+                             f"region {n_bounded}")
     t = time.perf_counter()
     sw = json.loads(run(sweep.main, [bam, os.path.join(data, "ref.fa"),
                                      os.path.join(work, "sweep"), "-c",
@@ -1791,7 +1914,9 @@ def phase_tools(report: dict, data: str, work: str) -> None:
           f"run: F1 {json.dumps(f1)}, {scores['truth_svs']} truth / "
           f"{scores['called_svs']} called SVs; merge of batch + stream: "
           f"{len(records)} records, {both} in both; view -c {region}: "
-          f"{n_view} reads; sweep -c 0.5: {sw['n_calls'][0]} calls, calling "
+          f"{n_view} reads; view -c chr21 of the demo (no end): {n_open} "
+          f"reads in {open_s:.3f} s, as chr21:1-200000; sweep -c 0.5: "
+          f"{sw['n_calls'][0]} calls, calling "
           f"F1 {sw['calling_f1'][0]} in {sweep_s:.1f} s", flush=True)
 
 
@@ -1836,6 +1961,7 @@ def main() -> int:
         phase_resume(report, data, work)
         phase_phase_only(report, work)
         phase_flags(report, data, work)
+        phase_haplotag_bam(report, work)
         phase_bench(report)
         phase_mesh(report, data, work)
         phase_profile(report, data, work)

@@ -23,13 +23,15 @@
 // Peak RSS is one contig's columns + O(chunk) rolling buffers — the
 // contract the streaming pipeline mode needs for whole-genome inputs.
 //
-// C API (consumed via ctypes from duet_tpu/io/native_ingest.py):
+// C API (consumed via ctypes from duet_tpu_torch/io/native_ingest.py):
 //   duet_bam_open / duet_bam_error / duet_bam_close
 //   duet_bam_n_refs / duet_bam_ref_name / duet_bam_ref_length
 //   duet_bam_set_filter(refs, n)      — decode only these ref ids
 //   duet_bam_next_contig()            — >=0 ref id, -1 EOF, -2 error
 //   duet_bam_n_reads / duet_bam_ragged_sizes / duet_bam_fill
 //     — accessors for the CURRENT contig's columns
+//   duet_bam_release / duet_bam_held_bytes
+//     — drop the current contig once filled; what the reader still holds
 //       per read: pos i64, end i64, mapq u8, flag u16
 //       ragged:   name bytes, cigar (op i8 / len i32), seq codes u8,
 //                 qual u8, each with (n+1) int64 offsets
@@ -703,6 +705,56 @@ void duet_bam_fill(void* h,
   cp(c.seq_off, seq_off);
   decode_columns(rd, name_bytes, cigar_ops, cigar_lens, seq_codes, quals);
   rd->t_fill += now_s() - t0;
+}
+
+// Drop the current contig once duet_bam_fill has copied it out: its record
+// offsets and sized columns, capacity and all, and the inflated window up
+// to the scan position, whose pages go back to the system (the next
+// contig's bytes already inflated stay).  A streaming caller then holds
+// each contig once, in its own arrays, while it works on them.
+void duet_bam_release(void* h) {
+  auto* rd = static_cast<Reader*>(h);
+  std::vector<size_t>().swap(rd->metas);
+  rd->cols = Columns();
+  rd->n_reads = 0;
+  Buf& raw = rd->raw;
+  raw.drop_front(rd->scan_pos);
+  rd->scan_pos = rd->retain = 0;
+  const size_t page = 4096;
+  size_t keep = (raw.n + page - 1) / page * page;
+  if (keep >= raw.cap) return;
+#if defined(__linux__)
+  if (keep == 0) {
+    munmap(raw.p, raw.cap);
+    raw.p = nullptr;
+  } else {
+    void* q = mremap(raw.p, raw.cap, keep, 0);  // shrinks in place
+    if (q == MAP_FAILED) return;                // keeps the mapping
+    raw.p = static_cast<uint8_t*>(q);
+  }
+#else
+  if (keep == 0) {
+    std::free(raw.p);
+    raw.p = nullptr;
+  } else {
+    void* q = std::realloc(raw.p, keep);
+    if (!q) return;
+    raw.p = static_cast<uint8_t*>(q);
+  }
+#endif
+  raw.cap = keep;
+}
+
+// Bytes the reader holds for records: the inflated window's capacity, the
+// record offsets and the sized columns (tests read it between contigs).
+int64_t duet_bam_held_bytes(void* h) {
+  auto* rd = static_cast<Reader*>(h);
+  const auto& c = rd->cols;
+  size_t n = rd->raw.cap + rd->metas.capacity() * sizeof(size_t) +
+             (c.pos.capacity() + c.end.capacity() + c.name_off.capacity() +
+              c.cigar_off.capacity() + c.seq_off.capacity()) * 8 +
+             c.mapq.capacity() + c.flag.capacity() * 2;
+  return static_cast<int64_t>(n);
 }
 
 // Interior cost split of the decode so far (VERDICT r4 weak #2 asked for

@@ -107,6 +107,31 @@ def build_bai(bam_path: str) -> bytes:
         records.append(prev + (((prev[3] >> 16) + 1) << 16,))
 
     bins, linear = binned_index(iter(records), n_ref)
+    return _bai_payload(bins, linear, n_ref, n_no_coor)
+
+
+def bai_from_offsets(n_ref: int, ref_id, pos, end, vbeg) -> bytes:
+    """Raw .bai payload from what a writer knows of the records it wrote,
+    in file order: reference id, position, end (pos + max(reference span,
+    1)) and virtual start offset, with no re-read.  The bytes are
+    build_bai's: a chunk ends where the next record starts, the last
+    record's at the start of the block after its own, and a record with
+    no coordinate (reference id or position below 0) is counted, not
+    binned."""
+    ref_id, pos, end, vbeg = (np.asarray(a, np.int64)
+                              for a in (ref_id, pos, end, vbeg))
+    vend = np.empty_like(vbeg)
+    vend[:-1] = vbeg[1:]
+    if len(vbeg):
+        vend[-1] = ((vbeg[-1] >> 16) + 1) << 16
+    placed = (ref_id >= 0) & (pos >= 0)
+    records = zip(*(a[placed].tolist() for a in (ref_id, pos, end, vbeg,
+                                                  vend)))
+    bins, linear = binned_index(records, n_ref)
+    return _bai_payload(bins, linear, n_ref, int((~placed).sum()))
+
+
+def _bai_payload(bins, linear, n_ref: int, n_no_coor: int) -> bytes:
     out = bytearray(BAI_MAGIC)
     out += struct.pack("<i", n_ref)
     for rid in range(n_ref):

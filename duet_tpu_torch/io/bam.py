@@ -268,18 +268,23 @@ def _reg2bin(beg: int, end: int) -> int:
     return 0
 
 
+def encode_header(header: BamHeader) -> bytes:
+    """The BAM magic, header text and reference list that open a BAM."""
+    text = header.text.encode()
+    out = bytearray(b"BAM\x01")
+    out += struct.pack("<i", len(text)) + text
+    out += struct.pack("<i", len(header.ref_names))
+    for name, length in zip(header.ref_names, header.ref_lengths):
+        nb = name.encode() + b"\x00"
+        out += struct.pack("<i", len(nb)) + nb + struct.pack("<i", length)
+    return bytes(out)
+
+
 class BamWriter:
     def __init__(self, path: str, header: BamHeader, compresslevel: int = 6):
         self._w = BgzfWriter(path, compresslevel)
         self.header = header
-        text = header.text.encode()
-        out = bytearray(b"BAM\x01")
-        out += struct.pack("<i", len(text)) + text
-        out += struct.pack("<i", len(header.ref_names))
-        for name, length in zip(header.ref_names, header.ref_lengths):
-            nb = name.encode() + b"\x00"
-            out += struct.pack("<i", len(nb)) + nb + struct.pack("<i", length)
-        self._w.write(bytes(out))
+        self._w.write(encode_header(header))
 
     def write(self, read: BamRead) -> None:
         name_b = read.name.encode() + b"\x00"
@@ -308,6 +313,172 @@ class BamWriter:
 
     def __exit__(self, *exc):
         self.close()
+
+
+# block_size and the 32-byte fixed part of a record; the HP, PC, PS tags
+_FIXED = np.dtype([("block_size", "<i4"), ("ref_id", "<i4"), ("pos", "<i4"),
+                   ("l_read_name", "u1"), ("mapq", "u1"), ("bin", "<u2"),
+                   ("n_cigar", "<u2"), ("flag", "<u2"), ("l_seq", "<i4"),
+                   ("next_ref_id", "<i4"), ("next_pos", "<i4"),
+                   ("tlen", "<i4")])
+_HAP_TAGS = np.dtype([("hp_key", "S3"), ("hp", "<i4"), ("pc_key", "S3"),
+                      ("pc", "<i4"), ("ps_key", "S3"), ("ps", "<i4")])
+
+
+def _pair_table() -> np.ndarray:
+    """Two base codes read as one little-endian uint16 -> their packed
+    byte (_encode_seq's nibbles, the first high)."""
+    first, second = np.meshgrid(np.arange(len(CODE_TO_NIBBLE)),
+                                np.arange(len(CODE_TO_NIBBLE)), indexing="ij")
+    table = np.zeros(1 << 16, np.uint8)
+    table[first | second << 8] = CODE_TO_NIBBLE[first] << 4 \
+        | CODE_TO_NIBBLE[second]
+    return table
+
+
+_PAIR_BYTE = _pair_table()
+
+
+def _reg2bin_np(beg: np.ndarray, end: np.ndarray) -> np.ndarray:
+    """_reg2bin over arrays: the finest level holding [beg, end)."""
+    last = end - 1
+    out = np.zeros(len(beg), np.int64)
+    for shift, base in ((26, 1), (23, 9), (20, 73), (17, 585), (14, 4681)):
+        out = np.where(beg >> shift == last >> shift, base + (beg >> shift),
+                       out)
+    return out
+
+
+def _copy(out: memoryview, dst: np.ndarray, src: memoryview,
+          start: np.ndarray, lens: np.ndarray) -> None:
+    """out[dst[i]:dst[i] + lens[i]] = src[start[i]:start[i] + lens[i]]: one
+    copy a read, whose cost does not grow with the read's length."""
+    for d, s, k in zip(dst.tolist(), start.tolist(), lens.tolist()):
+        out[d:d + k] = src[s:s + k]
+
+
+def _rows(out: np.ndarray, dst: np.ndarray, rows: np.ndarray) -> None:
+    """out[dst[i]:dst[i] + width] = rows[i]."""
+    out[dst[:, None] + np.arange(rows.shape[1])] = rows
+
+
+# bytes of records a piece of encode_records' stream: a contig's stream
+# never exists whole, and a writer's pool deflates one piece while the
+# next is encoded
+CHUNK_BYTES = 1 << 20
+
+
+def encode_records(cr, haps: dict):
+    """One contig's reads (a ``readstore.ContigReads``) as the records of a
+    BAM whose only reference it is, built column by column with numpy:
+    byte for byte what ``BamWriter.write`` writes for each read, with flag
+    0x10 on the reverse strand and 0x800 on a supplementary alignment, and
+    the tags HP, PC, PS of the reads that ``haps`` (name -> (hap, ps, pc))
+    holds.
+
+    Returns (pos, end, sizes, chunks): each record's position, its end as
+    an index counts it (pos + max(reference span, 1)), its size with its
+    block_size field, and an iterator over the records, in order, in
+    pieces of about ``CHUNK_BYTES``."""
+    n = cr.n
+    names = [nm.encode() for nm in cr.names]
+    l_name = np.fromiter(map(len, names), np.int64, n) + 1
+    name_off = np.concatenate([[0], np.cumsum(l_name)])
+    name_blob = np.frombuffer(b"\x00".join(names) + b"\x00", np.uint8) \
+        if n else np.zeros(0, np.uint8)
+    found = [haps.get(nm) for nm in cr.names]
+    tagged = np.fromiter((t is not None for t in found), bool, n)
+    tag_vals = np.array([t for t in found if t is not None],
+                        np.int64).reshape(-1, 3)
+    tags = np.zeros(len(tag_vals), _HAP_TAGS)
+    for key, col in (("hp", 0), ("ps", 1), ("pc", 2)):
+        tags[key + "_key"] = key.upper().encode() + b"i"
+        tags[key] = tag_vals[:, col]
+    tag_row = np.cumsum(tagged) - 1
+
+    pos = np.asarray(cr.starts, np.int64)
+    cig_off = np.asarray(cr.cigar_off, np.int64)
+    seq_off = np.asarray(cr.seq_off, np.int64)
+    n_cig = np.diff(cig_off)
+    l_seq = np.diff(seq_off)
+    ref_len = np.where(CONSUMES_REF[cr.cigar_ops] == 1, cr.cigar_lens, 0)
+    ref_cum = np.concatenate([[0], np.cumsum(ref_len, dtype=np.int64)])
+    end = pos + np.maximum(ref_cum[cig_off[1:]] - ref_cum[cig_off[:-1]], 1)
+    bins = _reg2bin_np(pos, end)
+    if n and (l_name.max() > 0xFF or n_cig.max() > 0xFFFF
+              or bins.max() > 0xFFFF or pos.min() < 0
+              or pos.max() >= 2 ** 31):
+        raise ValueError(f"{cr.contig}: a read does not fit a BAM record")
+    if cr.seq.size and cr.seq.max() >= len(CODE_TO_NIBBLE):
+        raise ValueError(f"{cr.contig}: a base code is not one of A C G T N")
+    if tag_vals.size and (tag_vals.min() < -2 ** 31
+                          or tag_vals.max() >= 2 ** 31):
+        raise ValueError(f"{cr.contig}: a tag value is out of int32 range")
+    flag = np.where(np.asarray(cr.strand) != 0, 0x10, 0) \
+        | np.where(np.asarray(cr.supp) != 0, 0x800, 0)
+    half = (l_seq + 1) // 2
+    sizes = 36 + l_name + 4 * n_cig + half + l_seq + 21 * tagged
+    rec_off = np.concatenate([[0], np.cumsum(sizes)])
+
+    def encode(a: int, b: int) -> bytes:
+        out = np.empty(int(rec_off[b] - rec_off[a]), np.uint8)  # all set
+        view = memoryview(out)
+        at = rec_off[a:b] - rec_off[a]
+        fixed = np.zeros(b - a, _FIXED)
+        fixed["block_size"] = sizes[a:b] - 4
+        fixed["pos"] = pos[a:b]
+        fixed["l_read_name"] = l_name[a:b]
+        fixed["mapq"] = cr.mapq[a:b]
+        fixed["bin"] = bins[a:b]
+        fixed["n_cigar"] = n_cig[a:b]
+        fixed["flag"] = flag[a:b]
+        fixed["l_seq"] = l_seq[a:b]
+        fixed["next_ref_id"] = fixed["next_pos"] = -1
+        _rows(out, at, fixed.view(np.uint8).reshape(b - a, _FIXED.itemsize))
+        at = at + 36
+        _copy(view, at, memoryview(name_blob), name_off[a:b], l_name[a:b])
+        at = at + l_name[a:b]
+        c0, c1 = cig_off[a], cig_off[b]
+        cig = (cr.cigar_lens[c0:c1].astype(np.uint32) << 4) \
+            | cr.cigar_ops[c0:c1].astype(np.uint32)
+        _copy(view, at, memoryview(cig.astype("<u4").view(np.uint8)),
+              4 * (cig_off[a:b] - c0), 4 * n_cig[a:b])
+        at = at + 4 * n_cig[a:b]
+        # the sequence as packed pairs from an even and from an odd start,
+        # so that each read's bytes are one slice of either; an odd-length
+        # read's last byte then ends in a zero nibble, as _encode_seq pads
+        s0, s1 = seq_off[a], seq_off[b]
+        m = (s1 - s0) // 2 + 1
+        codes = np.zeros(2 * m + 2, np.uint8)
+        codes[:s1 - s0] = cr.seq[s0:s1]
+        pairs = (_PAIR_BYTE[codes[:2 * m].view("<u2")],
+                 _PAIR_BYTE[codes[1:2 * m + 1].view("<u2")])
+        start = seq_off[a:b] - s0
+        h = half[a:b]
+        for parity, packed in enumerate(pairs):
+            sel = start % 2 == parity
+            _copy(view, at[sel], memoryview(packed), start[sel] // 2, h[sel])
+        odd = l_seq[a:b] % 2 == 1
+        out[(at + h - 1)[odd]] &= 0xF0
+        at = at + h
+        _copy(view, at, memoryview(cr.qual[s0:s1]), start, l_seq[a:b])
+        at = at + l_seq[a:b]
+        t = tagged[a:b]
+        if t.any():
+            _rows(out, at[t], tags[tag_row[a:b][t]].view(np.uint8).reshape(
+                -1, _HAP_TAGS.itemsize))
+        return out.tobytes()
+
+    def chunks():
+        a = 0
+        while a < n:
+            b = int(np.searchsorted(rec_off, rec_off[a] + CHUNK_BYTES,
+                                    side="right")) - 1
+            b = min(max(b, a + 1), n)
+            yield encode(a, b)
+            a = b
+
+    return pos, end, sizes, chunks()
 
 
 def write_bam_index(bam_path: str) -> None:

@@ -14,6 +14,10 @@ from __future__ import annotations
 import io
 import struct
 import zlib
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
 
 BGZF_EOF = bytes.fromhex(
     "1f8b08040000000000ff0600424302001b0003000000000000000000"
@@ -41,9 +45,19 @@ def is_bgzf(path: str) -> bool:
 
 
 class BgzfWriter:
-    """Streaming BGZF compressor."""
+    """Streaming BGZF compressor.
 
-    def __init__(self, path_or_file, compresslevel: int = 6):
+    Every block but the last holds exactly ``_MAX_BLOCK`` payload bytes and
+    is a raw-deflate stream of its own, so blocks compress in any order:
+    with ``threads > 1`` each full block is deflated on a thread pool (zlib
+    releases the interpreter lock) as soon as it fills, at most
+    ``4 * threads`` blocks in flight, and written in order: the same bytes
+    as one thread writes.  The writer keeps each block's uncompressed start
+    and compressed offset, from which ``voffsets`` gives the virtual
+    offsets an index needs."""
+
+    def __init__(self, path_or_file, compresslevel: int = 6,
+                 threads: int = 1):
         if isinstance(path_or_file, (str, bytes)):
             self._fh = open(path_or_file, "wb")
             self._owns = True
@@ -53,20 +67,27 @@ class BgzfWriter:
         self._buf = bytearray()
         self._level = compresslevel
         self._closed = False
+        self._pool = ThreadPoolExecutor(threads) if threads > 1 else None
+        self._depth = 4 * threads
+        self._in_flight: deque = deque()  # (payload size, future block)
+        self._block_u: list[int] = []     # uncompressed start of each block
+        self._block_c: list[int] = []     # compressed offset of each block
+        self._u = 0                       # payload bytes in written blocks
+        self._c = 0                       # compressed bytes written
 
     def write(self, data: bytes) -> int:
         self._buf += data
         while len(self._buf) >= _MAX_BLOCK:
-            self._flush_block(self._buf[:_MAX_BLOCK])
+            self._queue(bytes(memoryview(self._buf)[:_MAX_BLOCK]))
             del self._buf[:_MAX_BLOCK]
         return len(data)
 
-    def _flush_block(self, payload: bytes) -> None:
+    def _block(self, payload: bytes) -> bytes:
         co = zlib.compressobj(self._level, zlib.DEFLATED, -15)
         cdata = co.compress(payload) + co.flush()
         crc = zlib.crc32(payload) & 0xFFFFFFFF
         bsize = len(cdata) + 25 + 1  # header(12)+extra(6)+cdata+crc(4)+isize(4) == len+26
-        block = (
+        return (
             b"\x1f\x8b\x08\x04\x00\x00\x00\x00\x00\xff"
             + struct.pack("<H", 6)                     # XLEN
             + b"BC" + struct.pack("<H", 2)             # subfield id + len
@@ -74,22 +95,60 @@ class BgzfWriter:
             + cdata
             + struct.pack("<II", crc, len(payload) & 0xFFFFFFFF)
         )
+
+    def _queue(self, payload: bytes) -> None:
+        if self._pool is None:
+            self._emit(len(payload), self._block(payload))
+            return
+        self._in_flight.append((len(payload),
+                                self._pool.submit(self._block, payload)))
+        while len(self._in_flight) > self._depth:
+            self._emit_oldest()
+
+    def _emit_oldest(self) -> None:
+        size, block = self._in_flight.popleft()
+        self._emit(size, block.result())
+
+    def _emit(self, size: int, block: bytes) -> None:
         self._fh.write(block)
+        self._block_u.append(self._u)
+        self._block_c.append(self._c)
+        self._u += size
+        self._c += len(block)
 
     def flush(self) -> None:
         if self._buf:
-            self._flush_block(bytes(self._buf))
+            self._queue(bytes(self._buf))
             self._buf.clear()
+        while self._in_flight:
+            self._emit_oldest()
+
+    def voffsets(self, uoffsets) -> np.ndarray:
+        """Virtual offsets (coffset << 16 | offset in its block) of
+        uncompressed offsets counted from the writer's first byte.  Each
+        must lie in a block already written (all of them after close); one
+        on a block boundary is the next block's, at offset 0."""
+        u = np.asarray(uoffsets, dtype=np.int64)
+        if u.size and (u.min() < 0 or u.max() >= self._u):
+            raise ValueError("offset outside the blocks written so far")
+        starts = np.asarray(self._block_u, dtype=np.int64)
+        k = np.searchsorted(starts, u, side="right") - 1
+        return (np.asarray(self._block_c, dtype=np.int64)[k] << 16) \
+            | (u - starts[k])
 
     def close(self) -> None:
         if self._closed:
             return
-        self.flush()
-        self._fh.write(BGZF_EOF)
-        self._fh.flush()
-        if self._owns:
-            self._fh.close()
-        self._closed = True
+        try:
+            self.flush()
+            self._fh.write(BGZF_EOF)
+            self._fh.flush()
+        finally:
+            if self._pool is not None:
+                self._pool.shutdown()
+            if self._owns:
+                self._fh.close()
+            self._closed = True
 
     def __enter__(self):
         return self

@@ -19,7 +19,9 @@ The library is built from the port's own copy of the ingest source,
 but for its BGZF member inflate, which calls zlib (one reusable
 ``z_stream`` per thread, the gzip trailer's CRC32 and ISIZE checked)
 where the original links a separate inflate library, so it builds and
-loads on any host with zlib.  It is compiled with native/Makefile's
+loads on any host with zlib, and for ``duet_bam_release``, which the
+stream calls once a contig is copied out, so that the reader does not
+hold it a second time while the consumer works on it.  It is compiled with native/Makefile's
 compiler flags, linked against zlib alone, into
 ``build/duet_tpu_torch/native-<hash>/`` (keyed by a hash of the source and
 flags), so that this package never loads an object another package
@@ -176,6 +178,10 @@ def get_lib() -> ctypes.CDLL:
                                    ctypes.POINTER(ctypes.c_double)]
     lib.duet_bam_close.restype = None
     lib.duet_bam_close.argtypes = [ctypes.c_void_p]
+    lib.duet_bam_release.restype = None
+    lib.duet_bam_release.argtypes = [ctypes.c_void_p]
+    lib.duet_bam_held_bytes.restype = ctypes.c_int64
+    lib.duet_bam_held_bytes.argtypes = [ctypes.c_void_p]
     lib.duet_pileup_sizes.restype = None
     lib.duet_pileup_fill.restype = None
     lib.duet_pileup_counts_only.restype = None
@@ -358,10 +364,14 @@ def stream_read_store_native(bam_path: str, min_mapq: int = 0,
                 if rid >= 0:
                     t0 = time.perf_counter()
                     cr = _fetch_contig(lib, h, ref_names[rid])
+                    # the contig is in cr alone from here on: the reader
+                    # drops its copy before the consumer works on it
+                    lib.duet_bam_release(ctypes.c_void_p(h))
                     py_fetch_s += time.perf_counter() - t0
             if rid < 0:
                 break
             yield cr, contig_lengths
+            del cr  # the consumer's reference is the only one from here
     finally:
         # abandoned-generator cleanup can run at interpreter teardown, when
         # the ctypes function attributes may already be torn down

@@ -41,9 +41,12 @@ def reg2bin(beg: int, end: int) -> int:
 
 
 def reg2bins(beg: int, end: int) -> list[int]:
-    """All bins overlapping [beg, end) — the query-side counterpart."""
+    """All bins overlapping [beg, end) — the query-side counterpart.  As
+    htslib does, beg is clamped to 0 and end to 2^29, the end of the
+    binned space, so an open region (end 2^60) stays a bounded list."""
     out = [0]
-    end -= 1
+    beg = max(beg, 0)
+    end = min(end, 1 << 29) - 1
     for shift, base in ((26, 1), (23, 9), (20, 73), (17, 585), (14, 4681)):
         out.extend(range(base + (beg >> shift), base + (end >> shift) + 1))
     return out

@@ -5,7 +5,8 @@ against duet_tpu's build), the VCF parsers read duet_tpu's files into the
 same records, the VCF writers write duet_tpu's bytes from the same content,
 and the module constants, config defaults, CLI flags and shipped weights
 are equal.  The port's ingest source differs from the shared one only in
-its inflate, and both native readers reject a corrupt BGZF member.
+its inflate and in the release of a contig once copied out, and both
+native readers reject a corrupt BGZF member.
 
 The port's dataclasses are classes of their own, so objects cross packages
 field by field (``_as``) and are compared field by field."""
@@ -109,34 +110,77 @@ def test_read_store_equal(sim_dataset, reader):
 
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# the three places where the port's ingest source may differ from
+# the places where the port's ingest source may differ from
 # native/duet_ingest.cc: the inflate library's include, inflate_block with
-# the comment above it, and the inflate worker of the thread pool
-INFLATE_REGIONS = (
-    (r"#include <(libdeflate|zlib)\.h>\n", "<include>\n"),
-    (r"(//[^\n]*\n)+bool inflate_block\(.*?\n}\n", "<inflate_block>\n"),
+# the comment above it, the inflate worker of the thread pool, the module
+# the header names as the C API's consumer; and, in the port's source
+# alone, the API lines of duet_bam_release and duet_bam_held_bytes and
+# the two functions with their comments
+OWN_REGIONS = (
+    (r"#include <(libdeflate|zlib)\.h>\n", "<include>\n", True),
+    (r"(//[^\n]*\n)+bool inflate_block\(.*?\n}\n", "<inflate_block>\n",
+     True),
     (r"pool\.emplace_back\(\[&, t\]\(\) \{\n.*?\n {8}\}\);\n",
-     "<worker>\n"),
+     "<worker>\n", True),
+    (r"consumed via ctypes from duet_tpu(_torch)?/io/native_ingest\.py",
+     "<consumer>", True),
+    (r"//   duet_bam_release / duet_bam_held_bytes\n//     [^\n]*\n", "",
+     False),
+    (r"(//[^\n]*\n)+void duet_bam_release\(void\* h\) \{\n.*?\n}\n\n"
+     r"(//[^\n]*\n)+int64_t duet_bam_held_bytes\(void\* h\) \{\n.*?\n}\n\n",
+     "", False),
 )
 
 
-def _outside_inflate(text):
+def _outside_own_regions(text, port=True):
+    """The source with the regions it may differ in replaced by marks;
+    `port` is whether it is the port's (which alone has some of them)."""
     import re
 
-    for pattern, mark in INFLATE_REGIONS:
+    for pattern, mark, shared in OWN_REGIONS:
         text, n = re.subn(pattern, mark, text, flags=re.S)
-        assert n == 1, pattern
+        assert n == (1 if port or shared else 0), pattern
     return text
 
 
-def test_ingest_source_is_the_shared_one_but_for_its_inflate():
+def _sources():
     with open(os.path.join(REPO, "native", "duet_ingest.cc")) as f:
         want = f.read()
     with open(os.path.join(REPO, "duet_tpu_torch", "csrc",
                            "duet_ingest.cc")) as f:
         got = f.read()
+    return got, want
+
+
+def test_ingest_source_is_the_shared_one_but_for_its_inflate():
+    got, want = _sources()
     assert got != want
-    assert _outside_inflate(got) == _outside_inflate(want)
+    assert _outside_own_regions(got) == \
+        _outside_own_regions(want, port=False)
+
+
+@pytest.mark.parametrize("where,allowed", [
+    ("mremap(raw.p, raw.cap, keep, 0)", True),   # inside duet_bam_release
+    ("c.flag.capacity() * 2", True),             # inside duet_bam_held_bytes
+    ("inflateReset(zs)", True),                  # inside inflate_block
+    ("rd->metas.clear();", False),               # decode_columns
+    ("rd->retain = rd->scan_pos;", False),       # duet_bam_next_contig
+    ("constexpr size_t kReadChunk", False),      # a constant
+    ("duet_bam_fill / duet_bam_stats", False),   # not in the source: added
+])
+def test_ingest_pin_fails_on_any_other_edit(where, allowed):
+    """An edit inside a named region keeps the pin; one anywhere else in
+    the port's ingest source breaks it."""
+    got, want = _sources()
+    if where in got:
+        edited = got.replace(where, where + " ", 1)
+    else:
+        edited = got.replace("//   duet_bam_n_refs", "//   " + where +
+                             "\n//   duet_bam_n_refs", 1)
+    assert edited != got
+    same = _outside_own_regions(edited) == \
+        _outside_own_regions(want, port=False)
+    assert same == allowed
 
 
 def test_ingest_build_names_no_libdeflate():

@@ -182,6 +182,54 @@ def test_stream_rejects_unsorted_bam(tmp_path):
         run_pipeline_streaming(cfg)
 
 
+def test_stream_reader_holds_no_contig_it_yielded(two_contigs, monkeypatch):
+    """After each contig the native stream yields, its reader holds none of
+    that contig's bytes: its window holds at most what follows the contig
+    in the inflated stream (one refill's worth), and nothing at the end."""
+    import ctypes
+    import struct
+
+    from duet_tpu_torch.io import native_ingest
+    from duet_tpu_torch.io.bgzf import bgzf_decompress_file
+
+    try:
+        lib = native_ingest.get_lib()
+    except native_ingest.NativeUnavailable as e:
+        pytest.skip(f"the native ingest does not build here: {e}")
+    bam = os.path.join(two_contigs, "reads.bam")
+    data = bgzf_decompress_file(bam)
+    # where each reference's last record ends in the inflated stream
+    (l_text,) = struct.unpack_from("<i", data, 4)
+    off = 8 + l_text
+    (n_ref,) = struct.unpack_from("<i", data, off)
+    off += 4
+    for _ in range(n_ref):
+        off += 8 + struct.unpack_from("<i", data, off)[0]
+    ends = {}
+    while off < len(data):
+        size, rid = struct.unpack_from("<ii", data, off)
+        off += 4 + size
+        ends[rid] = off
+    handles = []
+    fetch = native_ingest._fetch_contig
+
+    def spy(lib_, h, name):
+        handles.append(h)
+        return fetch(lib_, h, name)
+
+    monkeypatch.setattr(native_ingest, "_fetch_contig", spy)
+    held = {}
+    for cr, _ in native_ingest.stream_read_store_native(bam, n_threads=2):
+        held[cr.contig] = lib.duet_bam_held_bytes(
+            ctypes.c_void_p(handles[-1]))
+    assert list(held) == ["chr1", "chr2"]
+    # the window rounds up to whole pages
+    assert 0 < held["chr1"] < len(data) - ends[0] + 4096
+    assert held["chr2"] == 0
+    stats = native_ingest.LAST_DECODE_STATS
+    assert held["chr1"] < stats["bytes_inflated"] / stats["inflate_batches"]
+
+
 @pytest.mark.parametrize("source", ["tsv", "bam"])
 def test_phase_only_matches_duet_tpu(sim_dataset, tmp_path, source):
     """Phase-only from the framework's .haplotags.tsv tables, or from the

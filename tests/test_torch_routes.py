@@ -379,6 +379,8 @@ def test_stream_scale_device_stages_flag(tmp_path, capsys):
         "sparse", "dense")
     assert doc["stream"]["device_size_gates"] == \
         doc["batch"]["device_size_gates"]
+    assert doc["stream_no_prefetch"]["peak_rss_mb"] > 0
+    assert doc["largest_contig_columns_mb"] > 0
     assert doc["sim_s"] is not None
     # a second run in the same --work reuses its data
     assert stream_scale.main(["--contigs", "chr1:60000", "--device", "cpu",

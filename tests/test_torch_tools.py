@@ -183,6 +183,30 @@ def test_view_prints_the_same(run, what, region):
     assert sinks[1].getvalue() == sinks[0].getvalue()
 
 
+@pytest.mark.parametrize("what,region,start", [
+    ("bam", "chr21", 1), ("bam", "chr21:150000-", 150000),
+    ("vcf", "chr21", 1), ("vcf", "chr21:100,000-", 100000),
+])
+def test_view_open_region_prints_the_bounded_one(run, sim_dataset, what,
+                                                 region, start):
+    """A region with no end: the port prints what duet_tpu prints for the
+    region bounded at the contig's length (duet_tpu's own reg2bins would
+    list every bin up to 2^60 for the open one)."""
+    from duet_tpu.tools import view as j_view
+    from duet_tpu_torch.tools import view as t_view
+
+    data, out = run
+    path = os.path.join(data, "reads.bam") if what == "bam" else \
+        os.path.join(out, "snp_calling", "pileup.vcf.gz")
+    fn = "view_bam" if what == "bam" else "view_vcf"
+    bounded = f"chr21:{start}-{sim_dataset[1].contigs['chr21']}"
+    sinks = [io.StringIO(), io.StringIO()]
+    counts = [getattr(t_view, fn)(path, region, out=sinks[0]),
+              getattr(j_view, fn)(path, bounded, out=sinks[1])]
+    assert counts[0] == counts[1] > 0
+    assert sinks[0].getvalue() == sinks[1].getvalue()
+
+
 def test_view_count_main(run, capsys):
     from duet_tpu.tools import view as j_view
     from duet_tpu_torch.tools import view as t_view
