@@ -28,9 +28,14 @@ together).  Phases, each printing one line:
                 zlib inflate) built and loaded, the zlib it links, and the
                 smoke BAM decoded by it (decode stats) and equal to the
                 Python reader's store;
+  [pileup kernel]  the device pileup's two kernels (csrc/pileup.cu:
+                pileup_count, pileup_call) against their plain versions on
+                PILEUP_EDGE_CASES at 1 and 40 times their size and on the
+                smoke store's grouped window, where each is timed;
   [pipeline on] the batch pipeline through the port's CLI with
-                --device-stages on (the dense scorer and its hand kernel),
-                every stage on the device and the ingest native;
+                --device-stages on (the device pileup on its kernels, the
+                dense scorer and its hand kernel), every stage on the
+                device and the ingest native;
   [pipeline off]  the same CLI with --device-stages off: byte-identical;
   [pipeline auto]  --device-stages auto, the default, twice in turns
                 with off: byte-identical to off, its recorded gates the
@@ -38,17 +43,18 @@ together).  Phases, each printing one line:
                 give at the smoke's sizes (the read scoring with auto's
                 scorer, the sparse COO scatter, whose device cost stands
                 beside the dense route's); its median total beside off's
-                and on's;
+                and on's; then auto --snp-model counts, whose pileup the
+                pileup gate sends to the card (its kernels launched);
   [fresh]       the CLI as a user starts it, a process of its own a run,
                 off, auto, on, on, auto, off: byte-identical to off, each
                 run's total and stages (the card's first use in a process
                 included: the card starts, and the phasing kernels first
                 run, on a thread beside ingest);
-  [pileup split]  the device pileup's host side on the smoke store: the op
-                table, the host packers beside the payload packed on the
-                card (equal bytes), two steady grouped launches beside
-                [pipeline on]'s first use, the at-site pass serial and on
-                the pool;
+  [pileup split]  the device pileup on the smoke store: the two kernels'
+                time beside the upload's, the op table, the host packers
+                beside the payload packed on the card (equal bytes), two
+                steady grouped launches beside [pipeline on]'s first use,
+                the at-site pass serial and on the pool;
   [stream]      --stream --device-stages on (contig-major, each contig's
                 reads scored by the batched kernel on its own): native
                 ingest, byte-identical to the batch run;
@@ -108,15 +114,16 @@ Times are medians of CUDA-event timed launches taken in turns (plain,
 kernel, kernel, plain); beside each kernel stand its bound (the larger of
 its bytes over the card's memory rate and its operations over the peak
 rate for their type) and one PyTorch library call on the same inputs (a
-float32 cuBLAS product; the port never calls it).
+float32 cuBLAS product; the port never calls it; none for the pileup
+kernels, whose functions no one torch call computes).
 Each path (the pipeline on, the pipeline auto, the stream, the resume,
 haplotag_score, the bench, --profile, each process of the multi-process
-run, the crossover tool) runs with the launch counts set to 0 just before
-it and read just after, and fails if a kernel of that path never launched
-(auto's read scorer, the sparse COO scatter, launches none, and fails if
-it does).  The mesh path launches none: as in
-duet_tpu, its products are plain matmuls outside any kernel.  Any failure
-exits non-zero.  The second-to-last line is one JSON object describing the
+run, the crossover tool, the mesh's pileup) runs with the launch counts
+set to 0 just before it and read just after, and fails if a kernel of
+that path never launched (auto's read scorer, the sparse COO scatter,
+launches none, and fails if it does).  The mesh's scoring
+launches no hand kernel: as in duet_tpu, its products are plain matmuls
+outside any kernel.  Any failure exits non-zero.  The second-to-last line is one JSON object describing the
 kernels; the last is {"ok": true, "device": {...}}.
 """
 
@@ -337,6 +344,91 @@ def sweep_edge_batch(R: int, S: int, kind: str):
     return A, W, phase
 
 
+# the pileup kernels' edge cases (pileup_edge_inputs), each a window in the
+# packers' layout: zero-length ops (first, in runs, between reads) and
+# n_real below the real lanes as well as the pad tail op; an odd nibble
+# count and ops whose keys run past the window; N bases (codes 4-7) and
+# qual-fail nibbles; reference code 4 and uncovered positions; depth 2-4,
+# where non-ref alleles tie for the maximum; 8 slots below the site count;
+# a one-position window
+PILEUP_EDGE_CASES = ("zero_len_pad", "odd_past_length", "n_qual_fail",
+                     "ref4_depth0", "ties", "overflow", "one_position")
+
+
+def pileup_edge_inputs(case: str, scale: int = 1):
+    """(ops4 (4, K) int32, payload_ref uint8, total, length, max_sites) of
+    one of PILEUP_EDGE_CASES, from a seed made of the case and `scale`: ops
+    laid out one after another in the payload (gaps of 0-3 nibbles), a
+    tail op absorbing the pad lanes up to a power of two, params
+    [n_real, 0, min_depth 3, 1/4, 3/4, min_alt 2] in row 3.  `scale`
+    multiplies the ops and the positions (at 1, one CTA of each kernel;
+    at 40, 16 and 6)."""
+    from duet_tpu_torch.models.snp_caller_host import _pow2
+
+    rng = np.random.default_rng([7, PILEUP_EDGE_CASES.index(case), scale])
+    L, n_ops, max_len, max_sites = 300 * scale, 400 * scale, 30, 256 * scale
+    if case == "ties":
+        n_ops, max_len = 300 * scale, 4
+    elif case == "overflow":
+        max_sites = 8
+    elif case == "one_position":
+        L, max_len, max_sites = 1, 3, 256
+    ln = rng.integers(1, max_len + 1, n_ops)
+    ref_start = rng.integers(0, L, n_ops)
+    ref_start = np.minimum(ref_start, np.maximum(L - ln, 0))
+    if case == "one_position":
+        ref_start[:] = 0                 # lengths 2-3 run past position 0
+    if case == "zero_len_pad":
+        ln[rng.random(n_ops) < 0.3] = 0
+        ln[:2] = 0
+        ln[100:106] = 0
+    if case == "odd_past_length":
+        ref_start[::25] = L - 2          # runs past the window's end
+        ref_start[7] = L + 5             # starts past it
+    if case == "ref4_depth0":
+        ref_start = np.minimum(ref_start, 2 * L // 3 - ln)
+    q_start = np.cumsum(ln + rng.integers(0, 4, n_ops)) - ln
+    if case == "odd_past_length" and (q_start[-1] + ln[-1]) % 2 == 0:
+        q_start[-1] += 1                 # the last byte holds one nibble
+    ns = int(q_start[-1] + ln[-1])
+    # reads of two haplotypes over the reference, a tenth of the positions
+    # a variant of haplotype 1, and 10% base errors; at "ties" and
+    # "one_position" every base at random
+    ref = rng.integers(0, 4, L)
+    alt = (ref + rng.integers(1, 4, L)) % 4
+    variant = rng.random(L) < 0.1
+    codes = rng.integers(0, 4, ns)
+    if case not in ("ties", "one_position"):
+        op = np.repeat(np.arange(n_ops), ln)
+        within = np.arange(len(op)) - np.repeat(np.cumsum(ln) - ln, ln)
+        pos = ref_start[op] + within
+        q = q_start[op] + within
+        keep = (pos < L) & (rng.random(len(op)) >= 0.1)
+        p, hap = pos[keep], rng.integers(0, 2, n_ops)[op[keep]] > 0
+        codes[q[keep]] = np.where(hap & variant[p], alt[p], ref[p])
+    codes |= 8
+    if case == "n_qual_fail":
+        n_base = rng.random(ns) < 0.2
+        codes[n_base] = rng.integers(4, 8, ns)[n_base] | 8
+        codes[rng.random(ns) < 0.2] &= 7
+    real = int(ln.sum())
+    total = _pow2(real + 1)
+    n_real = real - 7 if case == "zero_len_pad" else real
+    ops4 = np.zeros((4, _pow2(n_ops + 2)), np.int32)
+    ops4[0, :n_ops], ops4[1, :n_ops], ops4[2, :n_ops] = ref_start, q_start, ln
+    ops4[2, n_ops] = total - real
+    ops4[3, :8] = (n_real, 0, 3, 1, 4, 3, 4, 2)
+    nb = max(_pow2(ns), total, 2) // 2
+    payload = np.zeros(nb + L, np.uint8)
+    padded = np.zeros(2 * nb, np.uint8)
+    padded[:ns] = codes
+    payload[:nb] = padded[0::2] | (padded[1::2] << 4)
+    if case == "ref4_depth0":
+        ref[rng.random(L) < 0.2] = 4
+    payload[nb:] = ref
+    return ops4, payload, total, L, max_sites
+
+
 def _cuda(A, W, phase0, onehot):
     """Card tensors: alleles int8, weights float32 and bf16, phase, onehot."""
     import torch
@@ -359,6 +451,9 @@ def _require_equal(got, want, names, what: str) -> None:
             raise AssertionError(f"{what}: kernel != plain on {name}")
 
 
+PILEUP_KERNELS = ("pileup_count", "pileup_call")
+
+
 def _require_launches(counts: dict, names, path: str) -> None:
     missing = [n for n in names if counts[n] < 1]
     if missing:
@@ -377,6 +472,10 @@ def _kernel_name(mangled: str) -> str:
     if v:
         return f"sweep one-pass<{v.group(1)} threads, {v.group(2)} rows, " \
                f"{v.group(3)} stages>"
+    v = re.search(r"(op_block_sums|scan_kernel|count_kernel|site_counts|"
+                  r"compact_sites)", mangled)
+    if v:
+        return f"pileup {v.group(1)}"
     return "sweep reread" if "sweep_reread" in mangled else mangled
 
 
@@ -416,12 +515,12 @@ def phase_card(report: dict) -> None:
     t = time.perf_counter()
     haplotag_kernel.build()
     wall = time.perf_counter() - t
+    libs = ("haplotag_score", "haplotag_sweep", "pileup")
     builds = ", ".join(
         f"{n} {cuda_build.BUILD_INFO[n]['seconds']} s (fresh build: "
-        f"{cuda_build.BUILD_INFO[n]['built']})"
-        for n in ("haplotag_score", "haplotag_sweep"))
+        f"{cuda_build.BUILD_INFO[n]['built']})" for n in libs)
     report["ptxas"] = ptxas = [
-        info for n in ("haplotag_score", "haplotag_sweep")
+        info for n in libs
         for info in ptxas_info(cuda_build.BUILD_INFO[n]["log"])]
     print(f"[card] {report['card']} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | kernels built in parallel in {wall:.1f} s: "
@@ -787,13 +886,118 @@ def phase_ingest(report: dict, data: str) -> None:
           flush=True)
 
 
+def phase_pileup_kernel(report: dict, data: str) -> None:
+    """Both pileup kernels against their plain versions, exactly (the bins
+    with their sentinel, then the whole flat output): every edge case at 1
+    and 40 times its size, then the smoke store's grouped window, the
+    window [pipeline on] launches; each kernel's time there in turns
+    beside its plain version's and its bound."""
+    import torch
+
+    from duet_tpu_torch.io.fasta import FastaFile
+    from duet_tpu_torch.models.snp_caller import (_payload_on_device,
+                                                  group_tables, window_ops)
+    from duet_tpu_torch.models.snp_caller_host import (
+        DEVICE_MAX_SITE_DENSITY, SnpCallConfig, _as_rational, _pow2)
+    from duet_tpu_torch.ops.pileup import call_plain, count_plain
+    from duet_tpu_torch.ops.pileup_kernel import pileup_call, pileup_count
+
+    def check(ops4, payload, total, L, max_sites, what):
+        ref = payload[payload.shape[0] - L:]
+        bins = pileup_count(ops4, payload, total=total, length=L)
+        want_bins = count_plain(ops4, payload, total=total, length=L)
+        _require_equal([bins], [want_bins], ["the bins"], what)
+        out = pileup_call(bins, ref, ops4[3], max_sites)
+        want = call_plain(want_bins, ref, ops4[3], max_sites)
+        _require_equal([out], [want], ["the flat output"], what)
+        return bins, out, max(_max_abs_err([bins], [want_bins]),
+                              _max_abs_err([out], [want]))
+
+    t0 = time.perf_counter()
+    edges = []
+    for case in PILEUP_EDGE_CASES:
+        for scale in (1, 40):
+            ops4, payload, total, L, max_sites = pileup_edge_inputs(case,
+                                                                    scale)
+            _, out, _ = check(torch.from_numpy(ops4).cuda(),
+                              torch.from_numpy(payload).cuda(), total, L,
+                              max_sites, f"{case} x{scale}")
+            edges.append(f"{case} x{scale} ({int(out[0])} sites)")
+
+    dev = torch.device("cuda")
+    store = report["store"]
+    fa = FastaFile(os.path.join(data, "ref.fa"))
+    cfg = SnpCallConfig(device=True)
+    ref, rw, q0, ln, reads, _ = group_tables(
+        [(c, cr, fa.fetch_codes(c)) for c, cr in store.contigs.items()], cfg)
+    Lw = _pow2(len(ref))
+    max_sites = _pow2(max(Lw // DEVICE_MAX_SITE_DENSITY, 256))
+    rats = (*_as_rational(cfg.min_af), *_as_rational(cfg.hom_af))
+    ops4_np, total, ns_pad = window_ops(
+        cfg, rw, q0, ln, sum(len(seq) for seq, _ in reads), rats)
+    ops4 = torch.from_numpy(ops4_np).to(dev)
+    payload = _payload_on_device(reads, ref, ns_pad, Lw, cfg.min_base_qual,
+                                 dev)
+    bins, out, err = check(ops4, payload, total, Lw, max_sites,
+                           "the smoke's grouped window")
+    refc = payload[payload.shape[0] - Lw:]
+    params = ops4[3]
+    count_ms, count_plain_ms = _turns(
+        lambda: pileup_count(ops4, payload, total=total, length=Lw),
+        lambda: count_plain(ops4, payload, total=total, length=Lw),
+        rounds=2, reps=5)
+    call_ms, call_plain_ms = _turns(
+        lambda: pileup_call(bins, refc, params, max_sites),
+        lambda: call_plain(bins, refc, params, max_sites), rounds=2, reps=5)
+    n_real = int(ops4_np[3, 0])
+    kept = int(bins[:4 * Lw].sum())
+    K = ops4_np.shape[1]
+    hist = 4 * (4 * Lw + 1)
+    # each input read once and each output written once: count, the real
+    # lanes' nibbles and the ops' three rows in, the histogram out; call,
+    # the histogram and reference codes in, the flat output out
+    report["pileup_count"] = {"ms": count_ms, "plain_ms": count_plain_ms,
+                              "max_abs_err": err, "library_ms": None,
+                              **_bound((n_real + 1) // 2 + 12 * K + hist, 0,
+                                       "fp32")}
+    report["pileup_call"] = {"ms": call_ms, "plain_ms": call_plain_ms,
+                             "max_abs_err": err, "library_ms": None,
+                             **_bound(hist + Lw + 4 * (1 + 5 * max_sites),
+                                      0, "fp32")}
+    report["pileup_window"] = {"lanes": total, "real_lanes": n_real,
+                               "kept_lanes": kept, "ops": K, "length": Lw,
+                               "max_sites": max_sites,
+                               "sites": int(out[0])}
+    print(f"[pileup kernel] pileup_count and pileup_call == count_plain "
+          f"and call_plain (torch.equal on the int32 bins and the whole "
+          f"flat output) on {len(edges)} edge windows: {', '.join(edges)}; "
+          f"and on the smoke's grouped window "
+          f"{json.dumps(report['pileup_window'])}: pileup_count median "
+          f"{count_ms:.4f} ms vs plain {count_plain_ms:.4f} ms, bound "
+          f"{report['pileup_count']['bound_ms']:.4f} ms "
+          f"({report['pileup_count']['bound_by']}); pileup_call "
+          f"{call_ms:.4f} ms vs plain {call_plain_ms:.4f} ms, bound "
+          f"{report['pileup_call']['bound_ms']:.4f} ms "
+          f"({report['pileup_call']['bound_by']}); library: none (no one "
+          f"torch call computes either); in {time.perf_counter() - t0:.1f} "
+          f"s on {report['card']}", flush=True)
+
+
 def _reset_launches() -> None:
     import torch
 
-    from duet_tpu_torch.ops import haplotag_kernel
+    from duet_tpu_torch.ops import haplotag_kernel, pileup_kernel
 
     torch.cuda.synchronize()
     haplotag_kernel.reset_launches()
+    pileup_kernel.reset_launches()
+
+
+def _launches() -> dict:
+    """Every kernel's launches since the last _reset_launches."""
+    from duet_tpu_torch.ops import haplotag_kernel, pileup_kernel
+
+    return {**haplotag_kernel.LAUNCHES, **pileup_kernel.LAUNCHES}
 
 
 def _all_on_device(metrics: dict, path: str) -> None:
@@ -803,22 +1007,24 @@ def _all_on_device(metrics: dict, path: str) -> None:
 
 
 def phase_pipeline_on(report: dict, data: str, work: str) -> None:
-    from duet_tpu_torch.ops import haplotag_kernel
-
     _reset_launches()
     t = time.perf_counter()
     metrics = _run_cli(data, os.path.join(work, "on"), "on")
     report["pipeline_on_wall"] = time.perf_counter() - t
-    counts = dict(haplotag_kernel.LAUNCHES)
+    counts = _launches()
     report["launches"] = counts["haplotag_score"]
+    report["pileup_launches"] = {k: counts[k] for k in PILEUP_KERNELS}
     _all_on_device(metrics, "the pipeline")
     _require_launches(counts, ["haplotag_score"], "the pipeline (dense)")
+    _require_launches(counts, PILEUP_KERNELS, "the pipeline")
     if metrics["ingest"]["backend"] != "native":
         raise AssertionError(f"the pipeline ingested with "
                              f"{metrics['ingest']['backend']}, not native")
     report["pipeline_on"] = metrics
     print(f"[pipeline on] backends all device, haplotag_score launches "
-          f"{report['launches']}, wall {report['pipeline_on_wall']:.2f} s, "
+          f"{report['launches']}, pileup kernel launches "
+          f"{json.dumps(report['pileup_launches'])}, "
+          f"wall {report['pipeline_on_wall']:.2f} s, "
           f"ingest {metrics['ingest']['backend']}, "
           f"reads {metrics['counts']['reads']}, snp sites "
           f"{metrics['counts']['snp_sites']}, tagged reads "
@@ -852,11 +1058,9 @@ def _compare_artifacts(a: str, b: str) -> int:
 
 
 def phase_pipeline_off(report: dict, data: str, work: str) -> None:
-    from duet_tpu_torch.ops import haplotag_kernel
-
-    before = dict(haplotag_kernel.LAUNCHES)
+    before = _launches()
     metrics = _run_cli(data, os.path.join(work, "off"), "off")
-    if haplotag_kernel.LAUNCHES != before:
+    if _launches() != before:
         raise AssertionError("--device-stages off launched a kernel")
     on = os.path.join(work, "on")
     n = _compare_artifacts(on, os.path.join(work, "off"))
@@ -921,7 +1125,6 @@ def phase_pipeline_auto(report: dict, data: str, work: str) -> None:
     auto, off): byte-identical to off, the gates it records are the
     committed ones, each stage ran where those gates send the smoke's
     sizes, and its median total stands beside off's and on's."""
-    from duet_tpu_torch.ops import haplotag_kernel
     from duet_tpu_torch.pipeline import PipelineConfig
 
     gates = PipelineConfig(bam="", reference="",
@@ -932,7 +1135,7 @@ def phase_pipeline_auto(report: dict, data: str, work: str) -> None:
         out = os.path.join(work, f"{mode}{turn}")
         _reset_launches()
         metrics = _run_cli(data, out, mode)
-        counts = dict(haplotag_kernel.LAUNCHES)
+        counts = _launches()
         totals[mode].append(metrics["total_s"])
         n = _compare_artifacts(out, os.path.join(work, "off"))
         if mode == "off":
@@ -950,7 +1153,35 @@ def phase_pipeline_auto(report: dict, data: str, work: str) -> None:
             _require_launches(counts, ["haplotag_score"], "the auto pipeline")
         elif counts["haplotag_score"]:
             raise AssertionError("the sparse scorer launched a dense kernel")
+        # the pileup gates route the counting rule only
+        if counts["pileup_count"] or counts["pileup_call"]:
+            raise AssertionError(f"auto launched the pileup kernels under "
+                                 f"--snp-model auto: {counts}")
         report["pipeline_auto"] = metrics
+    # --snp-model counts: the pileup goes to the card from its gate (the
+    # whole store's: a batch run)
+    counting_gates = PipelineConfig(bam="", reference="", output="",
+                                    snp_model="counts").device_size_gates()
+    _reset_launches()
+    counting = _run_cli(data, os.path.join(work, "auto_counts"), "auto",
+                        "--snp-model", "counts")
+    counts_counting = _launches()
+    _compare_artifacts(os.path.join(work, "auto_counts"),
+                       os.path.join(work, "off"))
+    if counting["device_size_gates"] != counting_gates:
+        raise AssertionError(f"auto --snp-model counts recorded the gates "
+                             f"{counting['device_size_gates']}, not "
+                             f"{counting_gates}")
+    bases = report["auto_sizes"]["pileup_bases"]
+    route = "device" if bases >= counting_gates["pileup_min_bases"] \
+        else "host"
+    if counting["backends"] != {**want, "snp_pileup": route}:
+        raise AssertionError(f"auto --snp-model counts ran "
+                             f"{counting['backends']}; the gates predict the "
+                             f"pileup on the {route} at {bases} bases")
+    if route == "device":
+        _require_launches(counts_counting, PILEUP_KERNELS,
+                          "auto --snp-model counts")
     metrics = report["pipeline_auto"]
     on = report["pipeline_on"]
     scorer = ""
@@ -971,7 +1202,12 @@ def phase_pipeline_auto(report: dict, data: str, work: str) -> None:
           f"{totals['off']} s, on {on['total_s']} s: auto "
           f"{auto_s / best:.3f} x the faster median; stages "
           f"{json.dumps(metrics['stages'])}; device_cost "
-          f"{json.dumps(metrics['device_cost'])}", flush=True)
+          f"{json.dumps(metrics['device_cost'])}; --snp-model counts: "
+          f"byte-identical, the pileup on the {route} at {bases} bases "
+          f"(pileup launches {counts_counting['pileup_count']} / "
+          f"{counts_counting['pileup_call']}), total "
+          f"{counting['total_s']} s, stages "
+          f"{json.dumps(counting['stages'])}", flush=True)
 
 
 def phase_fresh(report: dict, data: str, work: str) -> None:
@@ -995,9 +1231,12 @@ def phase_fresh(report: dict, data: str, work: str) -> None:
         _compare_artifacts(out, os.path.join(work, "off"))
         with open(os.path.join(out, "metrics.json")) as f:
             m = json.load(f)
+        pileup = m["device_cost"].get("snp_pileup", {})
         runs[mode].append({"process_s": round(process_s, 3),
                            "total_s": m["total_s"], "stages": m["stages"],
-                           "backends": m["backends"]})
+                           "backends": m["backends"],
+                           "pileup_h2d_s": pileup.get("h2d_s"),
+                           "pileup_compute_s": pileup.get("compute_s")})
     median = {mode: float(np.median([r["total_s"] for r in rs]))
               for mode, rs in runs.items()}
     report["fresh"] = runs
@@ -1083,7 +1322,11 @@ def phase_pileup_split(report: dict, data: str) -> None:
             if not (np.array_equal(x, y) and np.array_equal(x, z)):
                 raise AssertionError("the at-site passes differ")
     first = report["pipeline_on"]["device_cost"]["snp_pileup"]
-    print(f"[pileup split] smoke store, {n_bases} bases: match_op_table "
+    kernels = {k: round(report[k]["ms"] / 1e3, 6)
+               for k in PILEUP_KERNELS}
+    print(f"[pileup split] smoke store, {n_bases} bases: the kernels' s "
+          f"at this window {json.dumps(kernels)} ([pileup kernel]) beside "
+          f"the upload's h2d_s {runs[-1]['h2d_s']}; match_op_table "
           f"{op_s:.4f} s; host packers (_pack_codes + _nibble_pack, the "
           f"route's host work before) {pack_s:.4f} s against the payload "
           f"packed on the card {payload_s:.4f} s (bytes equal); "
@@ -1095,14 +1338,13 @@ def phase_pileup_split(report: dict, data: str) -> None:
 def phase_stream(report: dict, data: str, work: str) -> None:
     """--stream under on: contig-major, native ingest, the batched score
     kernel launched per contig, byte-identical to the batch run."""
-    from duet_tpu_torch.ops import haplotag_kernel
-
     _reset_launches()
     t = time.perf_counter()
     metrics = _run_cli(data, os.path.join(work, "stream"), "on", "--stream")
     wall = time.perf_counter() - t
-    counts = dict(haplotag_kernel.LAUNCHES)
+    counts = _launches()
     _require_launches(counts, ["haplotag_score"], "the streaming pipeline")
+    _require_launches(counts, PILEUP_KERNELS, "the streaming pipeline")
     if metrics["ingest_backend"] != "native":
         raise AssertionError(f"--stream ingested with "
                              f"{metrics['ingest_backend']}, not native")
@@ -1183,17 +1425,15 @@ def phase_flags(report: dict, data: str, work: str) -> None:
     """--snp-model nn --haplotag-bam under on and under off: the same
     artifacts, the per-contig haplotagged BAMs and their indexes included;
     each mode's snp_phasing beside its run without --haplotag-bam."""
-    from duet_tpu_torch.ops import haplotag_kernel
-
     base = ("--snp-model", "nn")
     flags = (*base, "--haplotag-bam")
     _reset_launches()
     on = _run_cli(data, os.path.join(work, "flags_on"), "on", *flags)
-    counts = dict(haplotag_kernel.LAUNCHES)
+    counts = _launches()
     _require_launches(counts, ["haplotag_score"], "--snp-model nn under on")
-    before = dict(haplotag_kernel.LAUNCHES)
+    before = _launches()
     off = _run_cli(data, os.path.join(work, "flags_off"), "off", *flags)
-    if haplotag_kernel.LAUNCHES != before:
+    if _launches() != before:
         raise AssertionError("--device-stages off launched a kernel")
     if on["backends"]["snp_pileup"] != "nn" or \
             off["backends"]["snp_pileup"] != "nn":
@@ -1359,13 +1599,12 @@ def _mesh_cli(data: str, work: str, name: str, want: dict,
               *flags: str) -> str:
     """One CLI run under a mesh: byte-identical to the batch run, with its
     pileup, clustering and scoring on the mesh; returns its summary."""
-    from duet_tpu_torch.ops import haplotag_kernel
-
     _reset_launches()
     t = time.perf_counter()
     metrics = _run_cli(data, os.path.join(work, name), "on", *flags)
     wall = time.perf_counter() - t
-    counts = dict(haplotag_kernel.LAUNCHES)
+    counts = _launches()
+    _require_launches(counts, PILEUP_KERNELS, " ".join(flags))
     n = _compare_artifacts(os.path.join(work, name), os.path.join(work, "on"))
     off_mesh = {s: metrics["backends"][s] for s in
                 ("snp_pileup", "sv_cluster", "haplotag")
@@ -1439,6 +1678,7 @@ def phase_mesh(report: dict, data: str, work: str) -> None:
     snp_cfg = SnpCallConfig(model="counts")
     n_sites = 0
     called = {}
+    _reset_launches()
     for contig, cr in store.contigs.items():
         codes = ref.fetch_codes(contig)
         got = call_snps_sharded(mesh14, contig, cr, codes, snp_cfg)
@@ -1449,6 +1689,8 @@ def phase_mesh(report: dict, data: str, work: str) -> None:
                                      f"{contig}: {f}")
         n_sites += len(got.pos)
         called[contig] = (cr, want, obs)
+    pileup_launches = _launches()
+    _require_launches(pileup_launches, PILEUP_KERNELS, "call_snps_sharded")
 
     # the pipeline's mesh scorer (_haplotag_device's chunks of 256 * dp
     # rows, S_w a multiple of sp) on a 2 x 2 mesh of card 0, against the
@@ -1493,7 +1735,9 @@ def phase_mesh(report: dict, data: str, work: str) -> None:
           f"s); cluster_sharded (1x4) == cluster_host on {n_sigs} smoke "
           f"signatures ({n_clusters} clusters, 2 contigs x 4 types); "
           f"call_snps_sharded (1x4) == the host caller on "
-          f"{len(store.contigs)} contigs ({n_sites} sites); phase_contig "
+          f"{len(store.contigs)} contigs ({n_sites} sites; pileup kernel "
+          f"launches {pileup_launches['pileup_count']} / "
+          f"{pileup_launches['pileup_call']}); phase_contig "
           f"on a 2x2 mesh == the single-device tagging on "
           f"{len(called)} contigs ({mesh_chunks} mesh chunks, {n_tagged} "
           f"reads tagged); functions "
@@ -1522,15 +1766,14 @@ def phase_profile(report: dict, data: str, work: str) -> None:
     """--profile under on: the artifacts of the batch run, a trace that
     loads as JSON and holds CUDA kernel events, and the device idle share
     of the run."""
-    from duet_tpu_torch.ops import haplotag_kernel
-
     out = os.path.join(work, "profile")
     _reset_launches()
     t = time.perf_counter()
     metrics = _run_cli(data, out, "on", "--profile")
     wall = time.perf_counter() - t
-    counts = dict(haplotag_kernel.LAUNCHES)
+    counts = _launches()
     _require_launches(counts, ["haplotag_score"], "the profiled pipeline")
+    _require_launches(counts, PILEUP_KERNELS, "the profiled pipeline")
     n = _compare_artifacts(out, os.path.join(work, "on"))
     path = os.path.join(out, "profile", "trace.json")
     with open(path) as f:
@@ -1539,9 +1782,11 @@ def phase_profile(report: dict, data: str, work: str) -> None:
     if not kernels:
         raise AssertionError("the --profile trace holds no CUDA kernel event")
     names = {e["name"] for e in kernels}
-    if not any("haplotag_score_kernel" in k for k in names):
-        raise AssertionError(f"haplotag_score_kernel is not in the trace: "
-                             f"{sorted(names)[:20]}")
+    for kernel in ("haplotag_score_kernel", "count_kernel",
+                   "compact_sites"):
+        if not any(kernel in k for k in names):
+            raise AssertionError(f"{kernel} is not in the trace: "
+                                 f"{sorted(names)[:20]}")
     busy, window = _device_busy(events)
     report["profile"] = {"idle_share": 1.0 - busy / window, "wall_s": wall,
                          "busy_ms": busy / 1e3, "window_ms": window / 1e3}
@@ -1550,7 +1795,8 @@ def phase_profile(report: dict, data: str, work: str) -> None:
           f"events, {len(kernels)} kernel events of {len(names)} kernels; "
           f"device busy {busy / 1e3:.2f} ms of a {window / 1e3:.2f} ms traced "
           f"window: idle share {report['profile']['idle_share']:.6f}; "
-          f"haplotag_score launches {counts['haplotag_score']}; wall "
+          f"haplotag_score launches {counts['haplotag_score']}, pileup "
+          f"{counts['pileup_count']} / {counts['pileup_call']}; wall "
           f"{wall:.2f} s (unprofiled [pipeline on] {report['pipeline_on_wall']:.2f}"
           f" s), total {metrics['total_s']} s (unprofiled "
           f"{report['pipeline_on']['total_s']} s), stages "
@@ -1561,9 +1807,10 @@ def phase_profile(report: dict, data: str, work: str) -> None:
 _CLI_WITH_LAUNCHES = (
     "import json, sys\n"
     "from duet_tpu_torch.cli import main\n"
-    "from duet_tpu_torch.ops import haplotag_kernel\n"
+    "from duet_tpu_torch.ops import haplotag_kernel, pileup_kernel\n"
     "rc = main(sys.argv[1:])\n"
-    "print('LAUNCHES ' + json.dumps(haplotag_kernel.LAUNCHES), flush=True)\n"
+    "print('LAUNCHES ' + json.dumps({**haplotag_kernel.LAUNCHES,\n"
+    "                                **pileup_kernel.LAUNCHES}), flush=True)\n"
     "sys.exit(rc)\n")
 
 
@@ -1602,7 +1849,10 @@ def phase_multiprocess(report: dict, data: str, work: str) -> None:
         line = [ln for ln in stdout.splitlines() if ln.startswith("LAUNCHES ")]
         counts = json.loads(line[-1].split(" ", 1)[1])
         _require_launches(counts, ["haplotag_score"], f"process {pid}")
-        launches.append(counts["haplotag_score"])
+        _require_launches(counts, PILEUP_KERNELS, f"process {pid}")
+        launches.append({k: counts[k] for k in ("haplotag_score",
+                                                "pileup_count",
+                                                "pileup_call")})
     for name in ("snp_calling/pileup.vcf.gz", "sv_calling/variants.vcf",
                  "phased_sv.vcf"):
         if _read(os.path.join(out, name)) != \
@@ -1616,7 +1866,7 @@ def phase_multiprocess(report: dict, data: str, work: str) -> None:
     report["multiprocess_launches"] = launches
     print(f"[multiprocess] 2 processes at {addr} (gloo) on {report['card']}: "
           f"pileup.vcf.gz, variants.vcf and phased_sv.vcf byte-identical to "
-          f"the batch run; haplotag_score launches per process {launches}; "
+          f"the batch run; launches per process {json.dumps(launches)}; "
           f"wall {wall:.2f} s; process totals "
           f"{[m['total_s'] for m in metrics]} s, contigs "
           f"{[m['counts']['contigs'] for m in metrics]}, stages "
@@ -1840,8 +2090,8 @@ def phase_gates(report: dict) -> None:
     if rc != 0:
         raise AssertionError(f"route_crossover {argv} exited {rc}")
     doc = json.loads(out.getvalue().strip().splitlines()[-1])
-    committed = PipelineConfig(bam="", reference="",
-                               output="").device_size_gates()
+    committed = PipelineConfig(bam="", reference="", output="",
+                               snp_model="counts").device_size_gates()
     report["gates"] = doc
     print(f"[gates] route_crossover {' '.join(argv)} in "
           f"{time.perf_counter() - t:.1f} s, every stage's routes equal; "
@@ -1930,6 +2180,10 @@ KERNELS = [
      "duet_tpu/ops/pallas_haplotag.py:71", "sweep"),
     ("haplotag_score_pre", "duet_tpu_torch/csrc/haplotag_score.cu",
      "duet_tpu/ops/pallas_haplotag.py:37", "score_pre"),
+    ("pileup_count", "duet_tpu_torch/csrc/pileup.cu",
+     "duet_tpu/ops/pileup.py:124", "pileup_count"),
+    ("pileup_call", "duet_tpu_torch/csrc/pileup.cu",
+     "duet_tpu/ops/pileup.py:168", "pileup_call"),
 ]
 
 
@@ -1952,6 +2206,7 @@ def main() -> int:
         phase_nn(report)
         data = phase_simulate(report, work)
         phase_ingest(report, data)
+        phase_pileup_kernel(report, data)
         phase_pipeline_on(report, data, work)
         phase_pipeline_off(report, data, work)
         phase_pipeline_auto(report, data, work)
@@ -1981,7 +2236,8 @@ def main() -> int:
                 "haplotag_score_pre": report["launches_score_pre"],
                 "haplotag_sweep": report["bench_launches"]["haplotag_sweep"],
                 "haplotag_score_shared":
-                    report["bench_launches"]["haplotag_score_shared"]}
+                    report["bench_launches"]["haplotag_score_shared"],
+                **report["pileup_launches"]}
     print(f"[wall] every phase in {time.perf_counter() - t0:.1f} s",
           flush=True)
     print(report["card"])

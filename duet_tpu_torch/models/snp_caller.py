@@ -97,6 +97,27 @@ def _payload_on_device(reads, ref_window: np.ndarray, ns_pad: int, Lw: int,
     return payload
 
 
+def window_ops(cfg: SnpCallConfig, rw, q0, ln, n_bases: int, rats):
+    """A window's op table and sizes: (ops4 (4, K) int32, the padded lane
+    count, the padded nibble count).  The ops are padded so their
+    cumulative length covers the lanes exactly (a tail op absorbs the pad
+    lanes, masked by n_real); row 3 carries the params."""
+    af_num, af_den, hom_num, hom_den = rats
+    total = int(ln.sum())
+    total_pad = _pow2(max(total, 1))
+    n_ops = len(ln)
+    ops_pad = max(_pow2(n_ops + 1), 1 << 12)
+    ops4 = np.zeros((4, ops_pad), np.int32)
+    ops4[0, :n_ops] = rw
+    ops4[1, :n_ops] = q0
+    ops4[2, :n_ops] = ln
+    # tail op absorbs the pad lanes (q=0/ref=0; masked via n_real)
+    ops4[2, n_ops] = total_pad - total
+    ops4[3, :8] = (total, 0, cfg.min_depth,
+                   af_num, af_den, hom_num, hom_den, cfg.min_alt_reads)
+    return ops4, total_pad, max(_pow2(max(n_bases, 1)), total_pad, 2)
+
+
 def _device_window(contig: str, ref_window: np.ndarray, cfg: SnpCallConfig,
                    rw, q0, ln, reads, Lw: int, max_sites: int, rats,
                    device: torch.device):
@@ -116,20 +137,7 @@ def _device_window(contig: str, ref_window: np.ndarray, cfg: SnpCallConfig,
         # payload; past 2^30 bytes the padded offsets could cross 2^31
         return _host_window(contig, ref_window, cfg, rw, q0, ln,
                             _host_codes(reads, cfg))
-    af_num, af_den, hom_num, hom_den = rats
-    total = int(ln.sum())
-    total_pad = _pow2(max(total, 1))
-    n_ops = len(ln)
-    ops_pad = max(_pow2(n_ops + 1), 1 << 12)
-    ops4 = np.zeros((4, ops_pad), np.int32)
-    ops4[0, :n_ops] = rw
-    ops4[1, :n_ops] = q0
-    ops4[2, :n_ops] = ln
-    # tail op absorbs the pad lanes (q=0/ref=0; masked via n_real)
-    ops4[2, n_ops] = total_pad - total
-    ops4[3, :8] = (total, 0, cfg.min_depth,
-                   af_num, af_den, hom_num, hom_den, cfg.min_alt_reads)
-    ns_pad = max(_pow2(max(n_bases, 1)), total_pad, 2)
+    ops4, total_pad, ns_pad = window_ops(cfg, rw, q0, ln, n_bases, rats)
     dispatch.record("snp_pileup", "device")
     (d_ops4,) = devcost.put("snp_pileup", device, ops4)
     out_dev = devcost.run(
@@ -243,6 +251,28 @@ def _launch_group(group, cfg: SnpCallConfig, rats,
                   device: torch.device) -> list[tuple[str, ContigSnps]]:
     """Mirrors ``duet_tpu.models.snp_caller._launch_group``: ONE launch
     for several concatenated contigs, sites split back per contig."""
+    ref_all, rw, q0, ln, reads, offs = group_tables(group, cfg)
+    ref_off = len(ref_all)
+    Lw = _pow2(max(ref_off, 1))
+    max_sites = _pow2(max(Lw // DEVICE_MAX_SITE_DENSITY, 256))
+    part = _device_window("+".join(c for c, _, _ in group), ref_all, cfg,
+                          rw, q0, ln, reads, Lw, max_sites, rats, device)
+    pos = part[0]
+    bounds = np.searchsorted(pos, offs + [ref_off])
+    out = []
+    for k, (c, cr, ref) in enumerate(group):
+        sl = slice(int(bounds[k]), int(bounds[k + 1]))
+        out.append((c, _assemble_snps(
+            c, [(pos[sl] - offs[k], part[1][sl], part[2][sl],
+                 part[3][sl], part[4][sl])], ref)))
+    return out
+
+
+def group_tables(group, cfg: SnpCallConfig):
+    """A group's contigs concatenated along the reference: (reference
+    codes, op ref starts, op nibble starts, op lengths, the reads' (seq,
+    qual) arrays, each contig's reference offset); a read past its
+    contig's end raises."""
     rw_all, q0_all, ln_all, reads, ref_all, offs = [], [], [], [], [], []
     ref_off = 0
     ns_off = 0
@@ -262,21 +292,8 @@ def _launch_group(group, cfg: SnpCallConfig, rats,
         offs.append(ref_off)
         ref_off += L
         ns_off += len(cr.seq)
-    Lw = _pow2(max(ref_off, 1))
-    max_sites = _pow2(max(Lw // DEVICE_MAX_SITE_DENSITY, 256))
-    part = _device_window(
-        "+".join(c for c, _, _ in group), np.concatenate(ref_all), cfg,
-        np.concatenate(rw_all), np.concatenate(q0_all),
-        np.concatenate(ln_all), reads, Lw, max_sites, rats, device)
-    pos = part[0]
-    bounds = np.searchsorted(pos, offs + [ref_off])
-    out = []
-    for k, (c, cr, ref) in enumerate(group):
-        sl = slice(int(bounds[k]), int(bounds[k + 1]))
-        out.append((c, _assemble_snps(
-            c, [(pos[sl] - offs[k], part[1][sl], part[2][sl],
-                 part[3][sl], part[4][sl])], ref)))
-    return out
+    return (np.concatenate(ref_all), np.concatenate(rw_all),
+            np.concatenate(q0_all), np.concatenate(ln_all), reads, offs)
 
 
 def call_contig_snps(contig: str, cr, ref_codes: np.ndarray,

@@ -135,9 +135,13 @@ def sweep_launch_shape(R: int, S: int,
 
 
 def build() -> None:
-    """Build (or load) both kernel libraries, their nvcc runs in parallel."""
-    with ThreadPoolExecutor(2) as ex:
-        for f in [ex.submit(_score_library), ex.submit(_sweep_library)]:
+    """Build (or load) the port's three kernel libraries (score, sweep and
+    ``ops.pileup_kernel``'s pileup), their nvcc runs in parallel."""
+    from duet_tpu_torch.ops import pileup_kernel
+
+    with ThreadPoolExecutor(3) as ex:
+        for f in [ex.submit(_score_library), ex.submit(_sweep_library),
+                  ex.submit(pileup_kernel.build)]:
             f.result()
 
 

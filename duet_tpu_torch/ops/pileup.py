@@ -20,6 +20,11 @@ them into the (L, 4) histogram, and the called sites are compacted
 into one flat int32 readback of O(max_sites).  Integer counting has one
 answer, so the output is bit-identical to the JAX kernel and the host path.
 
+Two hand kernels on the card (``csrc/pileup.cu``, ``ops.pileup_kernel``):
+``pileup_count`` (expand + count) and ``pileup_call`` (call + compact);
+their plain versions here, ``count_plain`` and ``call_plain``, run on CPU
+tensors and are what the kernels are held against.
+
 JAX drops out-of-bounds scatter updates and clamps gathers; torch raises
 on both, so every index here is masked or clamped explicitly.
 """
@@ -97,37 +102,27 @@ def pileup_counts(positions: torch.Tensor, bases: torch.Tensor,
 LANE_CHUNK = 1 << 24
 
 
-def packed_window_body(ops4: torch.Tensor, payload_ref: torch.Tensor, *,
-                       total: int, length: int,
-                       max_sites: int) -> torch.Tensor:
-    """Expand, count, call and compact ONE coordinate window; returns one
-    flat int32 tensor [n_sites, site_idx*max_sites, alt_code*, is_het*,
-    depth*, alt_count*].  Padding contract (host side): op rows padded so
-    the cumulative length covers `total` exactly, pad lanes masked by
-    lane < n_real.  The single-device caller (as ``pileup_call_packed``)
-    and the mesh's per-shard pileup (``parallel.shard_pileup``) run this
-    one function, so the sharded path is the same math by construction.
+def count_plain(ops4: torch.Tensor, payload_ref: torch.Tensor, *,
+                total: int, length: int) -> torch.Tensor:
+    """Expand and count: the (4*length + 1,) int32 bins of one window's
+    lanes, the last the sentinel of every lane that does not count; the
+    plain version of the ``pileup_count`` kernel.
 
-    The lanes go LANE_CHUNK at a time, each counted into one histogram;
+    The lanes go LANE_CHUNK at a time, each counted into the one histogram;
     a lane's op is the number of ops that end at or before it (a binary
     search of the cumulative lengths: zero-length ops end where they start,
     so they are passed over), as the JAX kernel's scatter-mark cumsum
     gives it."""
     op_ref, op_q, op_len = ops4[0], ops4[1], ops4[2]
-    params = ops4[3]
-    n_real, min_depth = params[0], params[2]
-    af_num, af_den, hom_num, hom_den, min_alt = (
-        params[3], params[4], params[5], params[6], params[7])
+    n_real = ops4[3, 0]
     nb = payload_ref.shape[0] - length
     payload = payload_ref[:nb]
-    ref_codes = payload_ref[nb:]
     dev = ops4.device
     ends = torch.cumsum(op_len, 0, dtype=_I32)
     first_lane = ends - op_len
     last_op = ops4.shape[1] - 1
     sentinel = length * 4
     bins = torch.zeros(sentinel + 1, dtype=_I32, device=dev)
-    counts = bins[:sentinel].reshape(length, 4)
     for l0 in range(0, total, LANE_CHUNK):
         lane = torch.arange(l0, min(l0 + LANE_CHUNK, total), dtype=_I32,
                             device=dev)
@@ -141,6 +136,21 @@ def packed_window_body(ops4: torch.Tensor, payload_ref: torch.Tensor, *,
         keep = (base < 4) & ((nib >> 3) > 0) & (lane < n_real)
         key = torch.where(keep, (op_ref[seg] + within) * 4 + base, sentinel)
         _hist_counts(key, length, bins)
+    return bins
+
+
+def call_plain(bins: torch.Tensor, ref_codes: torch.Tensor,
+               params: torch.Tensor, max_sites: int) -> torch.Tensor:
+    """Call and compact: the flat int32 [n_sites, site_idx*max_sites,
+    alt_code*, is_het*, depth*, alt_count*] of the (4L + 1,) bins against
+    the L reference codes, with `params` ops4's row 3; the plain version of
+    the ``pileup_call`` kernel.  A slot past the sites holds site_idx 0 and
+    position 0's other fields (``jnp.nonzero(fill_value=0)`` gathered)."""
+    length = ref_codes.shape[0]
+    counts = bins[:length * 4].reshape(length, 4)
+    min_depth = params[2]
+    af_num, af_den, hom_num, hom_den, min_alt = (
+        params[3], params[4], params[5], params[6], params[7])
     is_site, is_het, alt_code, depth, alt_count = call_sites(
         counts, ref_codes, min_depth, af_num, af_den, hom_num, hom_den,
         min_alt)
@@ -149,6 +159,28 @@ def packed_window_body(ops4: torch.Tensor, payload_ref: torch.Tensor, *,
     at = site_idx.long()
     return torch.cat([n_sites[None], site_idx, alt_code[at],
                       is_het[at].to(_I32), depth[at], alt_count[at]])
+
+
+def packed_window_body(ops4: torch.Tensor, payload_ref: torch.Tensor, *,
+                       total: int, length: int,
+                       max_sites: int) -> torch.Tensor:
+    """Expand, count, call and compact ONE coordinate window; returns one
+    flat int32 tensor [n_sites, site_idx*max_sites, alt_code*, is_het*,
+    depth*, alt_count*].  Padding contract (host side): op rows padded so
+    the cumulative length covers `total` exactly, pad lanes masked by
+    lane < n_real.  The single-device caller (as ``pileup_call_packed``)
+    and the mesh's per-shard pileup (``parallel.shard_pileup``) run this
+    one function, so the sharded path is the same math by construction.
+
+    The two steps are ``ops.pileup_kernel``'s wrappers: on CUDA tensors
+    they launch the hand kernels of ``csrc/pileup.cu`` (a library that
+    fails to build or launch raises), on CPU tensors they run the plain
+    versions here, ``count_plain`` then ``call_plain``."""
+    from duet_tpu_torch.ops.pileup_kernel import pileup_call, pileup_count
+
+    bins = pileup_count(ops4, payload_ref, total=total, length=length)
+    nb = payload_ref.shape[0] - length
+    return pileup_call(bins, payload_ref[nb:], ops4[3], max_sites)
 
 
 pileup_call_packed = packed_window_body

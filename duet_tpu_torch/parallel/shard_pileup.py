@@ -10,8 +10,8 @@ only "collective" is stacking each shard's O(max_sites) compacted site list
 (JAX's gather of the sharded output).
 
 Each shard runs ``ops.pileup.packed_window_body`` — the single-device
-kernel's body — on its own device, so the sharded output is bit-identical
-by construction.  The host-side clipping and packing are the JAX package's
+kernel's body, on a card the hand kernels of ``csrc/pileup.cu`` — on its
+own device, so the sharded output is bit-identical by construction.  The host-side clipping and packing are the JAX package's
 numpy, over the port's copies of its packers (``models.snp_caller_host``).
 """
 

@@ -174,6 +174,15 @@ class PipelineConfig:
     # 1.61-1.64 s at 64,000), but its slowest call never beat the host's
     # fastest: the host's calls spread by 36-151% at every size from 2,000.
     DECIDE_GATE_H100_CALLS = None
+    # the device pileup (the counting rule: --snp-model counts), read
+    # bases: on a whole store as a batch run counts it, the device
+    # 0.1024-0.1257 s against the host's 0.1312-0.1625 s at 85,291,615 and
+    # 0.0523-0.0669 against 0.0590-0.0898 s at 41,494,548; at 20,763,483
+    # outside the spread in one run of two.  On one contig as --stream
+    # counts it: 0.0337-0.0383 against 0.0541-0.0747 s at 20,735,789; at
+    # 10,286,969 outside the spread in one run of two.
+    PILEUP_GATE_H100_BASES = 41_494_548
+    PILEUP_CONTIG_GATE_H100_BASES = 20_735_789
 
     def torch_device(self) -> torch.device:
         return resolve(self.device)
@@ -187,23 +196,44 @@ class PipelineConfig:
         return self.device_stages == "on" or \
             self.torch_device().type == "cuda"
 
-    def pileup_on_device(self) -> bool:
-        """The device pileup runs only under 'on'.  Under 'auto' the pileup
-        stays on the host: on the H100 the device pileup never beat the
-        native host count by more than the spread between calls, neither
-        on a whole store nor on one contig at a time (route_crossover's
-        pileup rows, PERF.md §5)."""
-        return self.use_device_kernel and self.device_stages == "on"
+    def pileup_gate(self, stream: bool = False) -> int | None:
+        """auto's pileup gate in read bases: a batch run's store, or under
+        --stream one contig.  None under any --snp-model but counts: the
+        device pileup implements the counting rule, while the host route of
+        --snp-model auto picks the rule from the host's count
+        (``choose_snp_model``), so only the counting rule gives the same
+        calls on both routes."""
+        if self.snp_model != "counts":
+            return None
+        return self.PILEUP_CONTIG_GATE_H100_BASES if stream \
+            else self.PILEUP_GATE_H100_BASES
+
+    def pileup_on_device(self, n_bases: int | None = None,
+                         stream: bool = False) -> bool:
+        """Whether the pileup of `n_bases` read bases runs on the device
+        (None: whether any size would): always under 'on'; under 'auto'
+        on a GPU from the gate on, where the device pileup with its hand
+        kernels beat the native host count on the H100 by more than the
+        spread between calls (route_crossover's pileup rows, PERF.md §5)."""
+        if not self.stages_on_device():
+            return False
+        if self.device_stages == "on":
+            return True
+        gate = self.pileup_gate(stream)
+        return gate is not None and (n_bases is None or n_bases >= gate)
 
     def phasing_device_min_nnz(self) -> int:
         """The phasing stage's allele-matrix gate: 0 under 'on'."""
         return 0 if self.device_stages == "on" \
             else self.PHASING_GATE_H100_NNZ
 
-    def snp_cfg(self) -> SnpCallConfig:
+    def snp_cfg(self, n_bases: int | None = None,
+                stream: bool = False) -> SnpCallConfig:
+        """The SNP stage's config for a pileup of `n_bases` read bases
+        (``pileup_on_device``)."""
         return SnpCallConfig(min_af=self.min_allele_frequency,
                              model=self.snp_model,
-                             device=self.pileup_on_device())
+                             device=self.pileup_on_device(n_bases, stream))
 
     def sv_cluster_min_k(self) -> int:
         return 0 if self.device_stages == "on" else self.SV_GATE_H100_K
@@ -237,12 +267,14 @@ class PipelineConfig:
 
     def device_size_gates(self) -> dict:
         """metrics.json's record of auto's gates and its read scorer (the
-        pileup's None: auto never sends it to the device); the link-probe
-        keys of the JAX package stay None (the port runs no probe)."""
+        pileup's two are None but under --snp-model counts, where they
+        route); the link-probe keys of the JAX package stay None (the port
+        runs no probe)."""
         from duet_tpu_torch.models.snp_phaser import HAPLOTAG_DEVICE_MODE
 
         return {
-            "pileup_min_bases": None,
+            "pileup_min_bases": self.pileup_gate(),
+            "pileup_contig_min_bases": self.pileup_gate(stream=True),
             "sv_cluster_min_signatures": self.SV_GATE_H100_K,
             "phasing_min_nnz": self.PHASING_GATE_H100_NNZ,
             "decide_min_calls": self.DECIDE_GATE_H100_CALLS,
@@ -539,8 +571,9 @@ def stage_snp_calling(cfg: PipelineConfig, st: PipelineState) -> None:
             if strip_chr(store_name) == strip_chr(fa_name):
                 ref_codes[store_name] = st.ref.fetch_codes(fa_name)
                 break
+    n_bases = sum(len(st.store.contigs[c].seq) for c in ref_codes)
     st.snps, st.site_obs = call_snps_for_store(
-        st.store, ref_codes, cfg.snp_cfg(), threads=cfg.threads,
+        st.store, ref_codes, cfg.snp_cfg(n_bases), threads=cfg.threads,
         device=cfg.torch_device(), nn_device=cfg.nn_device(), mesh=st.mesh)
     pid, nproc = _proc(cfg)
     if nproc > 1:
@@ -895,7 +928,7 @@ def run_pipeline_streaming(cfg: PipelineConfig) -> str:
             codes = st.ref.fetch_codes(fa_name)
             _mark("ingest", t)  # reference load is ingest, not SNP calling
             t = time.perf_counter()
-            snp_cfg = cfg.snp_cfg()
+            snp_cfg = cfg.snp_cfg(len(cr.seq), stream=True)
             if st.mesh is not None and mesh_pileup_ok(snp_cfg):
                 from duet_tpu_torch.parallel.shard_pileup import (
                     call_snps_sharded,

@@ -16,7 +16,12 @@ import torch
 
 import chip_smoke
 from duet_tpu_torch.bench import make_batch
-from duet_tpu_torch.ops import haplotag_kernel
+from duet_tpu_torch.ops import haplotag_kernel, pileup_kernel
+from duet_tpu_torch.ops.pileup import (
+    call_plain,
+    count_plain,
+    packed_window_body,
+)
 from duet_tpu_torch.ops.haplotag import (
     haplotag_score_plain,
     phase_and_tag,
@@ -94,6 +99,36 @@ def test_score_kernels_on_edge_shapes(cuda_device, K, S, rows):
     for name, x, y in zip(("hap", "pc", "best"), got_pre, want_pre):
         assert torch.equal(x, y), f"precomputed aw {name}"
     assert (got[0][::rows] == 0).all()          # the all-zero rows
+
+
+@pytest.mark.parametrize("scale", [1, 40])
+@pytest.mark.parametrize("case", chip_smoke.PILEUP_EDGE_CASES)
+def test_pileup_kernels_match_plain(cuda_device, case, scale):
+    """Both pileup kernels against their plain versions on the card, on
+    chip_smoke.py's edge cases: the bins with their sentinel, then the
+    whole flat output (slots past the sites included), each kernel once;
+    and packed_window_body on CUDA tensors runs the kernels."""
+    ops4, payload, total, L, max_sites = chip_smoke.pileup_edge_inputs(
+        case, scale)
+    o = torch.from_numpy(ops4).to(cuda_device)
+    p = torch.from_numpy(payload).to(cuda_device)
+    ref = p[p.shape[0] - L:]
+    before = dict(pileup_kernel.LAUNCHES)
+    bins = pileup_kernel.pileup_count(o, p, total=total, length=L)
+    out = pileup_kernel.pileup_call(bins, ref, o[3], max_sites)
+    torch.cuda.synchronize()
+    assert {k: pileup_kernel.LAUNCHES[k] - before[k]
+            for k in pileup_kernel.KERNELS} == {"pileup_count": 1,
+                                                "pileup_call": 1}
+    want_bins = count_plain(o, p, total=total, length=L)
+    assert bins.dtype == torch.int32 and torch.equal(bins, want_bins)
+    want = call_plain(want_bins, ref, o[3], max_sites)
+    assert out.device == cuda_device and torch.equal(out, want)
+    got = packed_window_body(o, p, total=total, length=L,
+                             max_sites=max_sites)
+    assert torch.equal(got, want)
+    assert pileup_kernel.LAUNCHES["pileup_count"] == \
+        before["pileup_count"] + 2
 
 
 def _small_batch(seed, B):

@@ -421,15 +421,30 @@ def test_pipeline_config_methods_agree():
         assert t_sv == j_sv
         assert t.phasing_device_min_nnz() == 49_995 != \
             j.phasing_device_min_nnz()
-    # auto on a card: the pileup and the decision pass stay on the host
-    # (their device routes never beat the host's outside its spread on the
-    # H100); on forces both
+    # auto on a card: the decision pass stays on the host (its device
+    # route never beat the host's outside its spread on the H100); the
+    # pileup of the counting rule goes to the device from its gates, a
+    # named deviation (duet_tpu's auto keeps it on the host), and under
+    # --snp-model auto stays on the host; on forces both
     gpu = t_pipeline.PipelineConfig(device_stages="auto", device="cuda",
                                     snp_model="counts", **paths)
     assert gpu.DECIDE_GATE_H100_CALLS is None
-    assert not gpu.pileup_on_device() and not gpu.decide_on_device(10 ** 9)
+    assert not gpu.decide_on_device(10 ** 9)
+    assert gpu.PILEUP_GATE_H100_BASES == 41_494_548
+    assert gpu.PILEUP_CONTIG_GATE_H100_BASES == 20_735_789
+    assert not hasattr(j_pipeline.PipelineConfig, "PILEUP_GATE_H100_BASES")
+    assert not gpu.pileup_on_device(41_494_547)
+    assert gpu.pileup_on_device(41_494_548) and gpu.pileup_on_device()
+    assert not gpu.pileup_on_device(20_735_788, stream=True)
+    assert gpu.pileup_on_device(20_735_789, stream=True)
+    for model in ("auto", "nn"):
+        assert not dataclasses.replace(gpu, snp_model=model
+                                       ).pileup_on_device(10 ** 12)
+    assert not j_pipeline.PipelineConfig(device_stages="auto",
+                                         snp_model="counts", **paths
+                                         ).pileup_on_device()
     on = t_pipeline.PipelineConfig(device_stages="on", device="cuda", **paths)
-    assert on.pileup_on_device() and on.decide_on_device(0)
+    assert on.pileup_on_device(0) and on.decide_on_device(0)
 
 
 def test_cli_flags_equal():

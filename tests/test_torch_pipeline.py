@@ -143,7 +143,8 @@ def test_auto_gates_stay_on_host_for_cpu_device(sim_dataset, tmp_path):
         metrics = json.load(f)
     assert metrics["backends"] == dict.fromkeys(STAGES, "host")
     assert metrics["device_size_gates"] == {
-        "pileup_min_bases": None, "sv_cluster_min_signatures": 64_000,
+        "pileup_min_bases": None, "pileup_contig_min_bases": None,
+        "sv_cluster_min_signatures": 64_000,
         "phasing_min_nnz": 49_995, "decide_min_calls": None,
         "haplotag_mode": "sparse",
         "h2d_probe_mb_s": None, "h2d_worst_put_s": None}

@@ -389,3 +389,75 @@ def test_stream_scale_device_stages_flag(tmp_path, capsys):
     again = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert again["sim_s"] is None and again["device_stages"] == "off"
     assert again["batch"]["snp_sites"] == doc["batch"]["snp_sites"]
+
+
+def test_device_size_gates_report_the_pileup_gates():
+    """Under --snp-model counts metrics.json's record of auto's gates holds
+    the pileup's two, the whole store's and one contig's, which route the
+    counting rule."""
+    from duet_tpu_torch.pipeline import PipelineConfig
+
+    gates = PipelineConfig(bam="", reference="", output="", device="cpu",
+                           snp_model="counts").device_size_gates()
+    assert gates["pileup_min_bases"] == \
+        PipelineConfig.PILEUP_GATE_H100_BASES == 41_494_548
+    assert gates["pileup_contig_min_bases"] == \
+        PipelineConfig.PILEUP_CONTIG_GATE_H100_BASES == 20_735_789
+
+
+@pytest.mark.parametrize("model", ["auto", "nn"])
+def test_device_size_gates_leave_the_pileup_to_counts(model):
+    """Under any other --snp-model no size sends the pileup to the device,
+    and the record says so: both pileup gates None."""
+    from duet_tpu_torch.pipeline import PipelineConfig
+
+    cfg = PipelineConfig(bam="", reference="", output="", device="cpu",
+                         snp_model=model)
+    gates = cfg.device_size_gates()
+    assert gates["pileup_min_bases"] is None
+    assert gates["pileup_contig_min_bases"] is None
+    assert cfg.pileup_gate() is None and cfg.pileup_gate(stream=True) is None
+
+
+@pytest.mark.parametrize("stream", [False, True])
+def test_auto_routes_the_pileup_by_its_gate(sim_dataset, tmp_path,
+                                            monkeypatch, stream):
+    """auto with --snp-model counts sends the pileup to the device from
+    its gate (the whole store's in a batch run, one contig's under
+    --stream) and keeps it on the host below it; either way the
+    artifacts are duet_tpu's."""
+    from duet_tpu.pipeline import PipelineConfig as JaxConfig
+    from duet_tpu.pipeline import run_pipeline as jax_run
+    from duet_tpu_torch.pipeline import (PipelineConfig, run_pipeline,
+                                         run_pipeline_streaming)
+    from test_torch_pipeline import _artifacts, _read
+
+    monkeypatch.setattr(PipelineConfig, "stages_on_device",
+                        lambda self: self.device_stages != "off")
+    data, _, _ = sim_dataset
+    paths = dict(bam=os.path.join(data, "reads.bam"),
+                 reference=os.path.join(data, "ref.fa"))
+    want = str(tmp_path / "jax")
+    jax_run(JaxConfig(output=want, snp_model="counts", **paths))
+    n_bases = sum(len(cr.seq) for cr in load_read_store(
+        paths["bam"]).contigs.values())
+    gate = "PILEUP_CONTIG_GATE_H100_BASES" if stream \
+        else "PILEUP_GATE_H100_BASES"
+    other = "PILEUP_GATE_H100_BASES" if stream \
+        else "PILEUP_CONTIG_GATE_H100_BASES"
+    monkeypatch.setattr(PipelineConfig, other, 1)   # the other shape's
+    for at, route in ((n_bases, "device"), (n_bases + 1, "host")):
+        monkeypatch.setattr(PipelineConfig, gate, at)
+        got = str(tmp_path / f"torch_{at}")
+        run = run_pipeline_streaming if stream else run_pipeline
+        run(PipelineConfig(output=got, device="cpu", snp_model="counts",
+                           **paths))
+        with open(os.path.join(got, "metrics.json")) as f:
+            metrics = json.load(f)
+        assert metrics["backends"]["snp_pileup"] == route
+        assert metrics["device_size_gates"][
+            "pileup_contig_min_bases" if stream else "pileup_min_bases"] == at
+        assert _artifacts(got) == _artifacts(want)
+        for name in _artifacts(want):
+            assert _read(os.path.join(got, name)) == \
+                _read(os.path.join(want, name)), name
