@@ -31,7 +31,10 @@ together).  Phases, each printing one line:
   [pileup kernel]  the device pileup's two kernels (csrc/pileup.cu:
                 pileup_count, pileup_call) against their plain versions on
                 PILEUP_EDGE_CASES at 1 and 40 times their size and on the
-                smoke store's grouped window, where each is timed;
+                smoke store's grouped window, where each is timed beside
+                the first kernel pair's time, with the count's tile size,
+                its ops off the tiles (second_path_ops; none here) and
+                each kernel's device time by pass;
   [pipeline on] the batch pipeline through the port's CLI with
                 --device-stages on (the device pileup on its kernels, the
                 dense scorer and its hand kernel), every stage on the
@@ -350,9 +353,13 @@ def sweep_edge_batch(R: int, S: int, kind: str):
 # count and ops whose keys run past the window; N bases (codes 4-7) and
 # qual-fail nibbles; reference code 4 and uncovered positions; depth 2-4,
 # where non-ref alleles tie for the maximum; 8 slots below the site count;
-# a one-position window
+# a one-position window; nibble starts below 0, whose gather counts from
+# the payload's end; ops across the seams of every count tile size from
+# 1024 to 8192 positions, one stretch piled 20 times deeper; ref starts
+# whose int32 keys wrap, into the window and out of it
 PILEUP_EDGE_CASES = ("zero_len_pad", "odd_past_length", "n_qual_fail",
-                     "ref4_depth0", "ties", "overflow", "one_position")
+                     "ref4_depth0", "ties", "overflow", "one_position",
+                     "negative_query", "tile_seams", "wrapped_keys")
 
 
 def pileup_edge_inputs(case: str, scale: int = 1):
@@ -361,8 +368,8 @@ def pileup_edge_inputs(case: str, scale: int = 1):
     laid out one after another in the payload (gaps of 0-3 nibbles), a
     tail op absorbing the pad lanes up to a power of two, params
     [n_real, 0, min_depth 3, 1/4, 3/4, min_alt 2] in row 3.  `scale`
-    multiplies the ops and the positions (at 1, one CTA of each kernel;
-    at 40, 16 and 6)."""
+    multiplies the ops and the positions (at 1, one count tile and one
+    call CTA but at "tile_seams"; at 40, several)."""
     from duet_tpu_torch.models.snp_caller_host import _pow2
 
     rng = np.random.default_rng([7, PILEUP_EDGE_CASES.index(case), scale])
@@ -373,9 +380,22 @@ def pileup_edge_inputs(case: str, scale: int = 1):
         max_sites = 8
     elif case == "one_position":
         L, max_len, max_sites = 1, 3, 256
+    elif case == "tile_seams":
+        L, n_ops, max_len = 65_536 * scale + 300, 1_600 * scale, 60
     ln = rng.integers(1, max_len + 1, n_ops)
     ref_start = rng.integers(0, L, n_ops)
     ref_start = np.minimum(ref_start, np.maximum(L - ln, 0))
+    if case == "tile_seams":
+        # each op starts 0-3 positions before a multiple of 1024, seams
+        # 8-11 with 20 times the ops of the others; a few ops of 3000-9000
+        # positions run over several tiles
+        seams = np.arange(1, L // 1024 + 1)
+        weight = np.where((seams >= 8) & (seams < 12), 20.0, 1.0)
+        seam = rng.choice(seams, n_ops, p=weight / weight.sum())
+        long = rng.choice(n_ops, 4 * scale, replace=False)
+        ln[long] = rng.integers(3_000, 9_000, len(long))
+        seam[long] = rng.integers(1, L // 1024 - 9, len(long))
+        ref_start = 1024 * seam - rng.integers(0, 4, n_ops)
     if case == "one_position":
         ref_start[:] = 0                 # lengths 2-3 run past position 0
     if case == "zero_len_pad":
@@ -422,10 +442,31 @@ def pileup_edge_inputs(case: str, scale: int = 1):
     payload = np.zeros(nb + L, np.uint8)
     padded = np.zeros(2 * nb, np.uint8)
     padded[:ns] = codes
+    if case == "negative_query":         # a wrapped gather reads counted codes
+        padded[ns:] = rng.integers(0, 4, 2 * nb - ns) | 8
     payload[:nb] = padded[0::2] | (padded[1::2] << 4)
     if case == "ref4_depth0":
         ref[rng.random(L) < 0.2] = 4
     payload[nb:] = ref
+    if case == "negative_query":
+        # a tenth of the ops start their nibbles in [-2 nb, -1]: half of
+        # them cross nibble 0, two start below -2 nb (clamped to byte 0)
+        sel = rng.choice(n_ops, n_ops // 10, replace=False)
+        ops4[1, sel] = rng.integers(-2 * nb, 0, len(sel))
+        half = sel[:len(sel) // 2]
+        ops4[1, half] = -rng.integers(1, np.maximum(ln[half], 2))
+        ops4[1, sel[:2]] = (-2 * nb - 1, -3 * nb)
+    elif case == "wrapped_keys":
+        # an eighth of the ops get ref starts whose keys wrap in int32:
+        # below 0; near -2^30 and 2^30, where 4 x ref wraps past 2^32 into
+        # [0, 4L) or out of it; near 2^31 - 1, where ref + within wraps
+        groups = np.array_split(rng.choice(n_ops, n_ops // 8, replace=False),
+                                5)
+        for g, (lo, hi) in zip(groups, [(-40, 0), (-2**30, -2**30 + L),
+                                        (2**30 - 20, 2**30),
+                                        (2**30, 2**30 + 2 * L),
+                                        (2**31 - 21, 2**31 - 1)]):
+            ops4[0, g] = rng.integers(lo, hi, len(g))
     return ops4, payload, total, L, max_sites
 
 
@@ -452,6 +493,9 @@ def _require_equal(got, want, names, what: str) -> None:
 
 
 PILEUP_KERNELS = ("pileup_count", "pileup_call")
+# the launches of csrc/pileup.cu's two entries, by kernel name
+PILEUP_PASSES = (r"(op_block_sums|scan_kernel|op_tiles|op_scatter|"
+                 r"tile_count|second_path|call_bits|compact_sites)")
 
 
 def _require_launches(counts: dict, names, path: str) -> None:
@@ -472,8 +516,7 @@ def _kernel_name(mangled: str) -> str:
     if v:
         return f"sweep one-pass<{v.group(1)} threads, {v.group(2)} rows, " \
                f"{v.group(3)} stages>"
-    v = re.search(r"(op_block_sums|scan_kernel|count_kernel|site_counts|"
-                  r"compact_sites)", mangled)
+    v = re.search(PILEUP_PASSES, mangled)
     if v:
         return f"pileup {v.group(1)}"
     return "sweep reread" if "sweep_reread" in mangled else mangled
@@ -886,12 +929,44 @@ def phase_ingest(report: dict, data: str) -> None:
           flush=True)
 
 
+# the first kernel pair's medians on the smoke's grouped window (a global
+# atomic a kept lane; the histogram read twice by the call), on an NVIDIA
+# H100 80GB HBM3 at 700 W (PERF.md section 6), printed beside this run's
+FIRST_PILEUP_MS = {"pileup_count": 3.3977, "pileup_call": 0.2415}
+
+
+def _pass_split(fn, reps: int = 5) -> dict:
+    """Device microseconds a call of `fn` spends in each kernel it
+    launches, by pass name (torch.profiler over `reps` calls)."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split: dict = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0)
+        v = re.search(PILEUP_PASSES, e.key)
+        if us > 0 and v:
+            split[v.group(1)] = split.get(v.group(1), 0) + us / reps
+    if not split:
+        raise AssertionError("torch.profiler saw no pileup kernel")
+    return {k: round(v, 1) for k, v in split.items()}
+
+
 def phase_pileup_kernel(report: dict, data: str) -> None:
     """Both pileup kernels against their plain versions, exactly (the bins
     with their sentinel, then the whole flat output): every edge case at 1
     and 40 times its size, then the smoke store's grouped window, the
-    window [pipeline on] launches; each kernel's time there in turns
-    beside its plain version's and its bound."""
+    window [pipeline on] launches, where no op may leave the count's
+    tiles; each kernel's time there in turns beside its plain version's,
+    its bound and the first kernel pair's time."""
     import torch
 
     from duet_tpu_torch.io.fasta import FastaFile
@@ -900,18 +975,25 @@ def phase_pileup_kernel(report: dict, data: str) -> None:
     from duet_tpu_torch.models.snp_caller_host import (
         DEVICE_MAX_SITE_DENSITY, SnpCallConfig, _as_rational, _pow2)
     from duet_tpu_torch.ops.pileup import call_plain, count_plain
-    from duet_tpu_torch.ops.pileup_kernel import pileup_call, pileup_count
+    from duet_tpu_torch.ops.pileup_kernel import (pileup_call, pileup_count,
+                                                  pileup_count_report,
+                                                  second_path_ops)
 
     def check(ops4, payload, total, L, max_sites, what):
         ref = payload[payload.shape[0] - L:]
-        bins = pileup_count(ops4, payload, total=total, length=L)
+        bins, seen = pileup_count_report(ops4, payload, total=total,
+                                         length=L)
         want_bins = count_plain(ops4, payload, total=total, length=L)
         _require_equal([bins], [want_bins], ["the bins"], what)
+        off = second_path_ops(ops4, payload, total=total, length=L)
+        if seen["second_path_ops"] != off:
+            raise AssertionError(f"{what}: {seen['second_path_ops']} ops "
+                                 f"off the count's tiles, not {off}")
         out = pileup_call(bins, ref, ops4[3], max_sites)
         want = call_plain(want_bins, ref, ops4[3], max_sites)
         _require_equal([out], [want], ["the flat output"], what)
-        return bins, out, max(_max_abs_err([bins], [want_bins]),
-                              _max_abs_err([out], [want]))
+        return bins, out, seen, max(_max_abs_err([bins], [want_bins]),
+                                    _max_abs_err([out], [want]))
 
     t0 = time.perf_counter()
     edges = []
@@ -919,10 +1001,11 @@ def phase_pileup_kernel(report: dict, data: str) -> None:
         for scale in (1, 40):
             ops4, payload, total, L, max_sites = pileup_edge_inputs(case,
                                                                     scale)
-            _, out, _ = check(torch.from_numpy(ops4).cuda(),
-                              torch.from_numpy(payload).cuda(), total, L,
-                              max_sites, f"{case} x{scale}")
-            edges.append(f"{case} x{scale} ({int(out[0])} sites)")
+            _, out, seen, _ = check(torch.from_numpy(ops4).cuda(),
+                                    torch.from_numpy(payload).cuda(), total,
+                                    L, max_sites, f"{case} x{scale}")
+            edges.append(f"{case} x{scale} ({int(out[0])} sites, "
+                         f"{seen['second_path_ops']} ops off the tiles)")
 
     dev = torch.device("cuda")
     store = report["store"]
@@ -938,8 +1021,11 @@ def phase_pileup_kernel(report: dict, data: str) -> None:
     ops4 = torch.from_numpy(ops4_np).to(dev)
     payload = _payload_on_device(reads, ref, ns_pad, Lw, cfg.min_base_qual,
                                  dev)
-    bins, out, err = check(ops4, payload, total, Lw, max_sites,
-                           "the smoke's grouped window")
+    bins, out, seen, err = check(ops4, payload, total, Lw, max_sites,
+                                 "the smoke's grouped window")
+    if seen["second_path_ops"]:
+        raise AssertionError(f"{seen['second_path_ops']} ops of the smoke's "
+                             f"window left the count's tiles")
     refc = payload[payload.shape[0] - Lw:]
     params = ops4[3]
     count_ms, count_plain_ms = _turns(
@@ -964,23 +1050,33 @@ def phase_pileup_kernel(report: dict, data: str) -> None:
                              "max_abs_err": err, "library_ms": None,
                              **_bound(hist + Lw + 4 * (1 + 5 * max_sites),
                                       0, "fp32")}
+    passes = {"pileup_count": _pass_split(
+        lambda: pileup_count(ops4, payload, total=total, length=Lw)),
+              "pileup_call": _pass_split(
+        lambda: pileup_call(bins, refc, params, max_sites))}
     report["pileup_window"] = {"lanes": total, "real_lanes": n_real,
                                "kept_lanes": kept, "ops": K, "length": Lw,
                                "max_sites": max_sites,
-                               "sites": int(out[0])}
+                               "sites": int(out[0]), **seen}
+    times = ", ".join(
+        f"{name} median {report[name]['ms']:.4f} ms (first version "
+        f"{FIRST_PILEUP_MS[name]} ms) vs plain {report[name]['plain_ms']:.4f}"
+        f" ms, bound {report[name]['bound_ms']:.4f} ms "
+        f"({report[name]['bound_by']}, "
+        f"{report[name]['bound_ms'] / report[name]['ms']:.1%} of it)"
+        for name in PILEUP_KERNELS)
     print(f"[pileup kernel] pileup_count and pileup_call == count_plain "
           f"and call_plain (torch.equal on the int32 bins and the whole "
-          f"flat output) on {len(edges)} edge windows: {', '.join(edges)}; "
-          f"and on the smoke's grouped window "
-          f"{json.dumps(report['pileup_window'])}: pileup_count median "
-          f"{count_ms:.4f} ms vs plain {count_plain_ms:.4f} ms, bound "
-          f"{report['pileup_count']['bound_ms']:.4f} ms "
-          f"({report['pileup_count']['bound_by']}); pileup_call "
-          f"{call_ms:.4f} ms vs plain {call_plain_ms:.4f} ms, bound "
-          f"{report['pileup_call']['bound_ms']:.4f} ms "
-          f"({report['pileup_call']['bound_by']}); library: none (no one "
-          f"torch call computes either); in {time.perf_counter() - t0:.1f} "
-          f"s on {report['card']}", flush=True)
+          f"flat output), and the count's ops off its tiles == "
+          f"second_path_ops, on {len(edges)} edge windows: "
+          f"{', '.join(edges)}; and on the smoke's grouped window "
+          f"{json.dumps(report['pileup_window'])} (tiles of "
+          f"{seen['tile_positions']} positions, "
+          f"{seen['second_path_ops']} ops off them): {times}; device us a "
+          f"call by pass (torch.profiler): {json.dumps(passes)}; library: "
+          f"none (no one torch call computes either); in "
+          f"{time.perf_counter() - t0:.1f} s on {report['card']}",
+          flush=True)
 
 
 def _reset_launches() -> None:
@@ -1782,8 +1878,7 @@ def phase_profile(report: dict, data: str, work: str) -> None:
     if not kernels:
         raise AssertionError("the --profile trace holds no CUDA kernel event")
     names = {e["name"] for e in kernels}
-    for kernel in ("haplotag_score_kernel", "count_kernel",
-                   "compact_sites"):
+    for kernel in ("haplotag_score_kernel", "tile_count", "compact_sites"):
         if not any(kernel in k for k in names):
             raise AssertionError(f"{kernel} is not in the trace: "
                                  f"{sorted(names)[:20]}")

@@ -22,52 +22,76 @@
 //               codes (4 = never call).
 //
 // What it keeps of the reference, exactly.  A lane belongs to the op whose
-// lanes hold it (zero-length ops own none); lanes at or past n_real do not
-// count; qidx >> 1 is clamped to [0, nb - 1] as JAX clamps a gather; a
+// lanes hold it (zero-length ops own none; lanes past the ops' end belong
+// to the last op); lanes at or past n_real do not count; the nibble's byte
+// is read as a jnp gather reads payload[qidx >> 1]: a negative index i
+// counts from the end (i + nb), then it is clamped to [0, nb - 1]; a
 // nibble counts only if its base is < 4 and its bit 3 is set; a key
 // outside [0, 4L) goes to the sentinel.  Keys are formed in 32-bit
 // unsigned arithmetic and read back as int32, so a wrap gives JAX's value
-// and is no C++ undefined behaviour.  Integer atomics commute: the counts
-// are the same whatever order the lanes land in.  The sentinel is not
-// incremented lane by lane (every pad lane would hit one address): each
-// CTA subtracts what it kept, and CTA 0 adds `total`, so it ends at total
-// minus the kept lanes, which is what the reference's scatter puts there.
-// Site calling follows call_sites: depth the sum of the four counts,
-// ref_safe = min(ref, 3), alt the first maximum (strict > in column order)
-// of the counts with the ref column set to -1, the allele-frequency cuts
-// as int32 products (multiplied as uint32 and read back, so they wrap as
-// JAX's do).  The compaction keeps position order; n_sites is the true
-// count even past M, and each slot past the sites holds site_idx 0 and
-// position 0's other four fields, as jnp.nonzero(fill_value=0) and the
-// gathers give them.
+// and is no C++ undefined behaviour.  Integer adds commute: the counts are
+// the same whatever order the lanes land in.  The sentinel is not
+// incremented lane by lane (every pad lane would hit one address): it
+// starts at `total` and each CTA subtracts what it kept, so it ends at
+// total minus the kept lanes, which is what the reference's scatter puts
+// there.  Site calling follows call_sites: depth the sum of the four
+// counts, ref_safe = min(ref, 3), alt the first maximum (strict > in
+// column order) of the counts with the ref column set to -1, the
+// allele-frequency cuts as int32 products (multiplied as uint32 and read
+// back, so they wrap as JAX's do).  The compaction keeps position order;
+// n_sites is the true count even past M, and each slot past the sites
+// holds site_idx 0 and position 0's other four fields, as
+// jnp.nonzero(fill_value=0) and the gathers give them.
 //
 // What bounds it.  Both are bound by bytes, each input read once and each
 // output written once: the count by the payload's nibbles (half a byte a
 // lane), the ops (12 bytes an op) and the histogram (16 bytes a position);
 // the call by one read of the histogram and the reference codes (17 bytes
 // a position) and its O(M) output.  At the smoke's grouped window (~200M
-// lanes, L = 2^24) the count's is ~0.38 GB: ~0.11 ms at 3.35 TB/s.  As
-// built it also moves one 4-byte atomic a kept lane (~0.8 GB more), and
-// the atomics' rate, not the bytes, sets its time.
+// lanes, L = 2^24) the count's is ~0.38 GB: ~0.11 ms at 3.35 TB/s.
 //
-// The design.  Count: a CTA takes OPS_PER_CTA consecutive ops.  A first
-// pass sums each CTA's op lengths, one CTA scans those sums, and so each
-// CTA knows its first lane without a scan of all K ops.  The CTA then
-// scans its own ops' lengths in shared memory and walks its lanes with
-// consecutive threads on consecutive lanes (so the nibble reads coalesce),
-// finding each lane's op from the thread's last one: the same op while the
-// next starts later, else a binary search of the ops' starts past it.  A
-// CTA takes one op a thread, so that ops of simulated long reads (~800
-// lanes) still spread over enough CTAs to fill the SMs.  Each kept lane is
-// one global int32 atomicAdd.
-// The pad op's lanes (at or past n_real) are never walked.  Call: a CTA
-// takes POS_PER_CTA positions in rounds of one position a thread (16-byte
-// loads of a position's four counts); a first pass counts each CTA's
-// sites, one CTA scans the counts, and a second pass ranks each site in
-// its CTA (a shuffle scan in each warp, then one of the warp totals) and
-// writes it.
-// Both recompute the call rather than store a mask: 17 bytes a position
-// against the histogram's zeroing alone at 16.
+// The count's design.  A global atomic a kept lane (the first version)
+// runs at the atomics' rate, ~60 G/s, 30x the bytes' bound; so the counts
+// are privatised per coordinate tile of TILE = 4096 positions, whose 4 x
+// 4096 int32 counts (67,584 bytes with a pad word every 32) live in one
+// CTA's dynamic shared memory.  That needs the ops binned by tile first:
+//   op_block_sums  each 256-op block's length sum (and zeroes the tile
+//                  counters, and sets the sentinel to `total`);
+//   scan_kernel    the block sums; op_tiles then gives each op its first
+//                  lane (block prefix + a scan in the block: a uint32
+//                  exclusive scan of all K lengths), its lanes that can
+//                  count, and the tiles they touch, counted per tile with
+//                  one atomic a warp and tile (__match_any_sync); an op
+//                  off the fast path (below) goes on a list instead;
+//   scan_kernel    the tile counts, so each tile owns a slice of one list;
+//   op_scatter     each op into the list of every tile it touches;
+//   tile_count     one CTA a tile: zero the shared counts, walk each listed
+//                  op's lanes clipped to the tile (a warp an op, 32-bit
+//                  payload words, 8 nibbles each, 4 words in flight a
+//                  thread; the ops of up to 32 entries fetched at once, one
+//                  a lane, and passed round by shuffles), one shared atomic
+//                  a kept lane, then every bin of the tile written once
+//                  with 16-byte stores: no memset of the histogram, and no
+//                  global atomic but one a CTA on the sentinel;
+//   second_path    the listed ops that break the tile rule, lane by lane
+//                  with global atomics, every rule above word for word.
+// An op is on the fast path when each of its counting lanes has its key
+// in [0, 4L) without a wrap (ref >= 0, ref + lanes <= L) and its nibble in
+// [0, 2 nb) (q >= 0, q + lanes <= 2 nb): then no wrap, clamp or sentinel
+// rule can apply.  The packers never make an op off it (a read past its
+// contig raises before the upload, and the pad tail op's lanes are at or
+// past n_real), so the second path launches a grid that finds an empty
+// list.  Work a tile follows depth: a tile piled deeper takes longer.
+// The list holds at most total / TILE + 2K entries (an op of n lanes
+// touches at most n / TILE + 2 tiles).
+//
+// The call's design.  call_bits reads each position's four counts (one
+// 16-byte load) and reference code once, calls it, and writes one bit a
+// position (a __ballot_sync word for each 32) and each CTA's site count;
+// one CTA scans the counts; compact_sites reads only the bit words (one a
+// thread), ranks each site by __popc within its CTA's prefix, and reads
+// again only the sites' counts and codes to write them.  Pass 1 moves the
+// 17 bytes a position; pass 2 1/256 of that plus the sites.
 //
 // Built by nvcc into a shared library with a plain C interface
 // (duet_tpu_torch/ops/cuda_build.py); each entry returns cudaGetLastError().
@@ -77,12 +101,24 @@
 
 namespace {
 
-constexpr int COUNT_THREADS = 256;
-constexpr int OPS_PER_CTA = COUNT_THREADS;  // one op a thread
+constexpr int OP_THREADS = 256;                    // op passes: an op a thread
+constexpr int TILE = 4096;                         // positions a count tile
+constexpr int TILE_ROW = TILE + TILE / 32;         // one base's shared counts
+constexpr int TILE_SMEM = 4 * TILE_ROW * (int)sizeof(int32_t);
+constexpr int TILE_THREADS = 512;
+constexpr int TILE_WARPS = TILE_THREADS / 32;
+// tile CTAs an SM holds: by shared memory (227 KB, 1 KB reserved a CTA)
+// and by threads (2048)
+constexpr int TILE_CTAS_SMEM = 232448 / (TILE_SMEM + 1024);
+constexpr int TILE_CTAS = TILE_CTAS_SMEM < 2048 / TILE_THREADS
+                              ? TILE_CTAS_SMEM : 2048 / TILE_THREADS;
+constexpr int WORDS_AHEAD = 4;                     // loads in flight a thread
+constexpr int SECOND_CTAS = 264;
 constexpr int CALL_THREADS = 256;
-constexpr int CALL_ROUNDS = 8;
-constexpr int POS_PER_CTA = CALL_THREADS * CALL_ROUNDS;
+constexpr int CALL_ROUNDS = 32;
+constexpr int POS_PER_CTA = CALL_THREADS * CALL_ROUNDS;  // a bit word a thread
 constexpr int SCAN_THREADS = 1024;
+constexpr unsigned FULL = 0xffffffffu;
 
 // The exclusive prefix of x over the CTA's threads; *total gets the sum.
 // Every thread of the CTA must call it (it synchronises twice).
@@ -93,7 +129,7 @@ __device__ uint32_t block_exclusive_scan(uint32_t x, uint32_t* total) {
   uint32_t incl = x;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    const uint32_t y = __shfl_up_sync(0xffffffffu, incl, d);
+    const uint32_t y = __shfl_up_sync(FULL, incl, d);
     if (lane >= d) incl += y;
   }
   if (lane == 31) warp_sum[warp] = incl;
@@ -102,7 +138,7 @@ __device__ uint32_t block_exclusive_scan(uint32_t x, uint32_t* total) {
     uint32_t w = lane < THREADS / 32 ? warp_sum[lane] : 0;
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
-      const uint32_t y = __shfl_up_sync(0xffffffffu, w, d);
+      const uint32_t y = __shfl_up_sync(FULL, w, d);
       if (lane >= d) w += y;
     }
     if (lane < THREADS / 32) warp_sum[lane] = w;  // inclusive over warps
@@ -133,89 +169,242 @@ __global__ void __launch_bounds__(SCAN_THREADS)
 
 // ---------------------------------------------------------------- count --
 
-// Each CTA's sum of its OPS_PER_CTA op lengths (wrapping, as the
-// reference's int32 cumsum).
-__global__ void __launch_bounds__(COUNT_THREADS)
-    op_block_sums(const int32_t* __restrict__ len, int K,
-                  int32_t* __restrict__ sums) {
-  const int op = blockIdx.x * OPS_PER_CTA + (int)threadIdx.x;
-  uint32_t total;
-  block_exclusive_scan<COUNT_THREADS>(op < K ? (uint32_t)len[op] : 0u,
-                                      &total);
-  if (threadIdx.x == 0) sums[blockIdx.x] = (int32_t)total;
+using i64 = long long;
+
+struct CountArgs {
+  const int32_t* ref;  // ops4's rows: ref start, nibble start, length
+  const int32_t* q;
+  const int32_t* len;
+  const int32_t* n_real;  // ops4[3, 0]
+  const uint8_t* payload;
+  int K, nb, total, length;
+  bool aligned;  // payload 4-byte aligned
+};
+
+// The lanes that can count: [0, min(n_real, total)).
+__device__ __forceinline__ int lane_limit(const CountArgs& a) {
+  return min(max(*a.n_real, 0), a.total);
 }
 
-__global__ void __launch_bounds__(COUNT_THREADS)
-    count_kernel(const int32_t* __restrict__ ops4, int K,
-                 const uint8_t* __restrict__ payload, int nb, int total,
-                 int length, const int32_t* __restrict__ first,
-                 int32_t* __restrict__ bins) {
-  __shared__ int32_t s_start[OPS_PER_CTA + 1];
-  __shared__ int32_t s_ref[OPS_PER_CTA];
-  __shared__ int32_t s_q[OPS_PER_CTA];
-  const int op0 = blockIdx.x * OPS_PER_CTA;
-  const int n = min(OPS_PER_CTA, K - op0);
-  const int32_t* len = ops4 + 2 * (size_t)K;
+// Op k's lanes that can count, as its withins [w0, w1): lanes [s, next
+// op's first) (to `limit` for the last op) clipped to [0, limit); and,
+// when they are on the fast path, the tiles they touch.
+struct Span {
+  i64 w0, w1;
+  int t0, nt;  // nt = 0 off the fast path or without lanes
+  bool slow;   // lanes, off the fast path
+};
 
-  // the CTA's ops: starts (its first lane plus the scan of their lengths),
-  // ref starts and nibble starts, into shared memory
-  const int i = threadIdx.x;
-  uint32_t cta_lanes;
-  const uint32_t start =
-      (uint32_t)first[blockIdx.x] +
-      block_exclusive_scan<COUNT_THREADS>(
-          i < n ? (uint32_t)len[op0 + i] : 0u, &cta_lanes);
-  if (i < n) {
-    s_start[i] = (int32_t)start;
-    s_ref[i] = ops4[op0 + i];
-    s_q[i] = ops4[(size_t)K + op0 + i];
+__device__ Span op_span(int k, int32_t s, int limit, const CountArgs& a) {
+  const i64 next = (int32_t)((uint32_t)s + (uint32_t)a.len[k]);
+  const i64 lo = max((i64)s, 0ll);
+  const i64 hi = k == a.K - 1 ? (i64)limit : min(next, (i64)limit);
+  Span sp{lo - s, hi - s, 0, 0, false};
+  if (hi <= lo) return sp;
+  const i64 ref = a.ref[k], q = a.q[k];
+  if (ref >= 0 && ref + sp.w1 <= a.length && q >= 0 &&
+      q + sp.w1 <= 2 * (i64)a.nb) {
+    sp.t0 = (int)((ref + sp.w0) / TILE);
+    sp.nt = (int)((ref + sp.w1 - 1) / TILE) - sp.t0 + 1;
+  } else {
+    sp.slow = true;
   }
-  if (threadIdx.x == 0)
-    s_start[n] = (int32_t)((uint32_t)first[blockIdx.x] + cta_lanes);
-  __syncthreads();
+  return sp;
+}
 
-  // the lanes that can count: [0, min(n_real, total)); the last CTA's last
-  // op also owns any lanes past the ops' end, as the reference's clamped
-  // op index gives them
-  const int32_t n_real = ops4[3 * (size_t)K];
-  const int limit = min(max(n_real, 0), total);
-  const int lo = max(s_start[0], 0);
-  const int hi = blockIdx.x == gridDim.x - 1 ? limit : min(s_start[n], limit);
-  const int sentinel = 4 * length;
-  uint32_t kept = 0;
-  int cur = 0;
-  for (int lane = lo + (int)threadIdx.x; lane < hi; lane += COUNT_THREADS) {
-    int a = cur;  // the last op that starts at or before lane
-    if (a + 1 < n && s_start[a + 1] <= lane) {
-      int b = n - 1;
-      ++a;
-      while (a < b) {
-        const int m = (a + b + 1) >> 1;
-        if (s_start[m] <= lane) a = m; else b = m - 1;
-      }
-      cur = a;
+// The tiles t0 .. t0 + nt - 1 of each thread, a round a tile: the threads
+// of a warp on one tile take consecutive slots of counter[t] with one
+// atomic, and f(t, slot) runs for each.  Every thread of the warp calls it.
+template <class F>
+__device__ void tile_slots(int t0, int nt, int32_t* counter, F f) {
+  const unsigned below = (1u << (threadIdx.x & 31)) - 1u;
+  for (int j = 0; __any_sync(FULL, j < nt); ++j) {
+    const int t = j < nt ? t0 + j : -1;
+    const unsigned peers = __match_any_sync(FULL, t);
+    if (t >= 0) {
+      const int leader = __ffs(peers) - 1;
+      int32_t slot = 0;
+      if ((int)(threadIdx.x & 31) == leader)
+        slot = atomicAdd(counter + t, __popc(peers));
+      slot = __shfl_sync(peers, slot, leader);
+      f(t, slot + __popc(peers & below));
     }
-    const uint32_t within = (uint32_t)lane - (uint32_t)s_start[a];
-    const int32_t qidx = (int32_t)((uint32_t)s_q[a] + within);
-    const int32_t at = min(max(qidx >> 1, 0), nb - 1);
-    const int nib = (payload[at] >> ((qidx & 1) << 2)) & 0xF;
-    const int base = nib & 7;
-    if (base < 4 && (nib & 8)) {
-      const int32_t key =
-          (int32_t)(((uint32_t)s_ref[a] + within) * 4u + (uint32_t)base);
-      if (key >= 0 && key < sentinel) {
-        atomicAdd(&bins[key], 1);
-        ++kept;
+  }
+}
+
+// Each 256-op block's length sum (wrapping, as the reference's int32
+// cumsum); also zeroes `zero[0, n_zero)` and sets the sentinel to total.
+__global__ void __launch_bounds__(OP_THREADS)
+    op_block_sums(const int32_t* __restrict__ len, int K,
+                  int32_t* __restrict__ sums, int32_t* __restrict__ zero,
+                  int n_zero, int32_t* __restrict__ sentinel, int total) {
+  const int op = blockIdx.x * OP_THREADS + (int)threadIdx.x;
+  for (int i = op; i < n_zero; i += gridDim.x * OP_THREADS) zero[i] = 0;
+  if (op == 0) *sentinel = total;
+  uint32_t sum;
+  block_exclusive_scan<OP_THREADS>(op < K ? (uint32_t)len[op] : 0u, &sum);
+  if (threadIdx.x == 0) sums[blockIdx.x] = (int32_t)sum;
+}
+
+// Each op's first lane; the fast ops' tiles counted per tile, the slow
+// ops listed.
+__global__ void __launch_bounds__(OP_THREADS)
+    op_tiles(CountArgs a, const int32_t* __restrict__ sums,
+             int32_t* __restrict__ first, int32_t* __restrict__ tile_n,
+             int32_t* __restrict__ slow_n, int32_t* __restrict__ slow) {
+  const int k = blockIdx.x * OP_THREADS + (int)threadIdx.x;
+  uint32_t unused;
+  const uint32_t s =
+      (uint32_t)sums[blockIdx.x] +
+      block_exclusive_scan<OP_THREADS>(k < a.K ? (uint32_t)a.len[k] : 0u,
+                                       &unused);
+  Span sp{0, 0, 0, 0, false};
+  if (k < a.K) {
+    first[k] = (int32_t)s;
+    sp = op_span(k, (int32_t)s, lane_limit(a), a);
+  }
+  if (sp.slow) slow[atomicAdd(slow_n, 1)] = k;
+  tile_slots(sp.t0, sp.nt, tile_n, [](int, int32_t) {});
+}
+
+// Each fast op into the list of every tile it touches.
+__global__ void __launch_bounds__(OP_THREADS)
+    op_scatter(CountArgs a, const int32_t* __restrict__ first,
+               const int32_t* __restrict__ tile_off,
+               int32_t* __restrict__ cursor, int32_t* __restrict__ list) {
+  const int k = blockIdx.x * OP_THREADS + (int)threadIdx.x;
+  Span sp{0, 0, 0, 0, false};
+  if (k < a.K) sp = op_span(k, first[k], lane_limit(a), a);
+  tile_slots(sp.t0, sp.nt, cursor,
+             [&](int t, int32_t slot) { list[tile_off[t] + slot] = k; });
+}
+
+// Payload word x (nibbles 8x .. 8x + 7); bytes at or past nb read as 0.
+__device__ __forceinline__ uint32_t load_word(const CountArgs& a,
+                                              uint32_t x) {
+  const uint64_t b = (uint64_t)x * 4;
+  if (a.aligned && b + 4 <= (uint64_t)a.nb)
+    return __ldg(reinterpret_cast<const uint32_t*>(a.payload) + x);
+  uint32_t w = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (b + i < (uint64_t)a.nb) w |= (uint32_t)a.payload[b + i] << (8 * i);
+  return w;
+}
+
+__device__ __forceinline__ int smem_at(uint32_t base, uint32_t pos) {
+  return (int)(base * TILE_ROW + pos + (pos >> 5));
+}
+
+// One CTA a tile: its listed ops' lanes counted in shared memory, then
+// the tile's bins written once.
+__global__ void __launch_bounds__(TILE_THREADS, TILE_CTAS)
+    tile_count(CountArgs a, const int32_t* __restrict__ first,
+               const int32_t* __restrict__ tile_off,
+               const int32_t* __restrict__ list, int32_t* __restrict__ bins) {
+  extern __shared__ int4 smem4[];
+  int32_t* counts = reinterpret_cast<int32_t*>(smem4);
+  for (int i = threadIdx.x; i < TILE_ROW; i += TILE_THREADS)
+    smem4[i] = make_int4(0, 0, 0, 0);
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int limit = lane_limit(a);
+  const i64 p0 = (i64)blockIdx.x * TILE;
+  const int e_end = tile_off[blockIdx.x + 1];
+  uint32_t kept = 0;
+  for (int eb = tile_off[blockIdx.x] + warp; eb < e_end;
+       eb += 32 * TILE_WARPS) {
+    // lane i fetches entry eb + i * TILE_WARPS: its nibbles in the tile,
+    // [n0, n1), and the shift from a nibble index to a tile position
+    const int e = eb + lane * TILE_WARPS;
+    uint32_t my_n0 = 0, my_n1 = 0, my_shift = 0;
+    if (e < e_end) {
+      const int k = list[e];
+      const Span sp = op_span(k, first[k], limit, a);
+      const i64 ref = a.ref[k], q = a.q[k];
+      const i64 w0 = max(sp.w0, p0 - ref);
+      const i64 w1 = min(sp.w1, p0 + TILE - ref);
+      my_n0 = (uint32_t)(q + w0);
+      my_n1 = (uint32_t)(q + w1);
+      my_shift = (uint32_t)(ref - p0 - q);
+    }
+    const int n_here = min(32, (e_end - eb + TILE_WARPS - 1) / TILE_WARPS);
+    for (int i = 0; i < n_here; ++i) {
+      const uint32_t n0 = __shfl_sync(FULL, my_n0, i);
+      const uint32_t n1 = __shfl_sync(FULL, my_n1, i);
+      const uint32_t shift = __shfl_sync(FULL, my_shift, i);
+      const uint32_t x1 = (n1 - 1) >> 3;  // last word, inclusive
+      for (uint32_t x0 = (n0 >> 3) + lane; x0 <= x1; x0 += 32 * WORDS_AHEAD) {
+        uint32_t w[WORDS_AHEAD];
+#pragma unroll
+        for (int u = 0; u < WORDS_AHEAD; ++u) {
+          const uint32_t x = x0 + 32u * u;
+          w[u] = x <= x1 ? load_word(a, x) : 0u;
+        }
+#pragma unroll
+        for (int u = 0; u < WORDS_AHEAD; ++u) {
+          const uint32_t nx = (x0 + 32u * u) * 8u;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const uint32_t n = nx + j, nib = (w[u] >> (4 * j)) & 15u;
+            if (n >= n0 && n < n1 && (nib & 8u) && (nib & 7u) < 4u) {
+              atomicAdd(counts + smem_at(nib & 7u, n + shift), 1);
+              ++kept;
+            }
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int p = threadIdx.x; p < TILE && p0 + p < a.length;
+       p += TILE_THREADS) {
+    const int i = smem_at(0, p);
+    reinterpret_cast<int4*>(bins)[p0 + p] =
+        make_int4(counts[i], counts[i + TILE_ROW], counts[i + 2 * TILE_ROW],
+                  counts[i + 3 * TILE_ROW]);
+  }
+  uint32_t cta_kept;
+  block_exclusive_scan<TILE_THREADS>(kept, &cta_kept);
+  if (threadIdx.x == 0 && cta_kept)
+    atomicAdd(reinterpret_cast<unsigned int*>(bins + 4 * a.length),
+              0u - cta_kept);
+}
+
+// The ops off the fast path, a CTA an op, lane by lane with global
+// atomics (after tile_count, on the same stream).
+__global__ void __launch_bounds__(OP_THREADS)
+    second_path(CountArgs a, const int32_t* __restrict__ first,
+                const int32_t* __restrict__ slow_n,
+                const int32_t* __restrict__ slow, int32_t* __restrict__ bins) {
+  const int n = *slow_n, limit = lane_limit(a), sentinel = 4 * a.length;
+  uint32_t kept = 0;
+  for (int i = blockIdx.x; i < n; i += gridDim.x) {
+    const int k = slow[i];
+    const Span sp = op_span(k, first[k], limit, a);
+    const uint32_t ref = (uint32_t)a.ref[k], q = (uint32_t)a.q[k];
+    for (i64 w = sp.w0 + threadIdx.x; w < sp.w1; w += OP_THREADS) {
+      const uint32_t within = (uint32_t)w;
+      const int32_t qidx = (int32_t)(q + within);
+      int32_t at = qidx >> 1;
+      if (at < 0) at += a.nb;  // a jnp gather: from the end, then clamped
+      at = min(max(at, 0), a.nb - 1);
+      const int nib = (a.payload[at] >> ((qidx & 1) << 2)) & 0xF;
+      const int base = nib & 7;
+      if (base < 4 && (nib & 8)) {
+        const int32_t key = (int32_t)((ref + within) * 4u + (uint32_t)base);
+        if (key >= 0 && key < sentinel) {
+          atomicAdd(&bins[key], 1);
+          ++kept;
+        }
       }
     }
   }
   uint32_t cta_kept;
-  block_exclusive_scan<COUNT_THREADS>(kept, &cta_kept);
-  if (threadIdx.x == 0) {
-    uint32_t add = 0u - cta_kept;
-    if (blockIdx.x == 0) add += (uint32_t)total;
-    atomicAdd(reinterpret_cast<unsigned int*>(bins + sentinel), add);
-  }
+  block_exclusive_scan<OP_THREADS>(kept, &cta_kept);
+  if (threadIdx.x == 0 && cta_kept)
+    atomicAdd(reinterpret_cast<unsigned int*>(bins + sentinel),
+              0u - cta_kept);
 }
 
 // ----------------------------------------------------------------- call --
@@ -268,31 +457,40 @@ __device__ Call call_at(const int32_t* __restrict__ bins,
   return {depth, alt, alt_count, site, het && site};
 }
 
-// Each CTA's count of sites over its POS_PER_CTA positions.
+// Pass 1: a site bit a position (a ballot word for each 32) and each
+// CTA's count of sites over its POS_PER_CTA positions.
 __global__ void __launch_bounds__(CALL_THREADS)
-    site_counts(const int32_t* __restrict__ bins,
-                const uint8_t* __restrict__ ref, int length,
-                const int32_t* __restrict__ params,
-                int32_t* __restrict__ counts) {
+    call_bits(const int32_t* __restrict__ bins,
+              const uint8_t* __restrict__ ref, int length,
+              const int32_t* __restrict__ params,
+              uint32_t* __restrict__ bits, int32_t* __restrict__ counts) {
   const Params q = load_params(params);
   const int p0 = blockIdx.x * POS_PER_CTA;
+  const int warp_p0 = p0 + (int)(threadIdx.x & ~31u);
   uint32_t s = 0;
-#pragma unroll
+#pragma unroll 8
   for (int k = 0; k < CALL_ROUNDS; ++k) {
     const int p = p0 + k * CALL_THREADS + (int)threadIdx.x;
-    if (p < length) s += call_at(bins, ref, p, q).site;
+    const uint32_t word =
+        __ballot_sync(FULL, p < length && call_at(bins, ref, p, q).site);
+    if ((threadIdx.x & 31) == 0) {
+      bits[(warp_p0 + k * CALL_THREADS) >> 5] = word;
+      s += __popc(word);
+    }
   }
   uint32_t total;
   block_exclusive_scan<CALL_THREADS>(s, &total);
   if (threadIdx.x == 0) counts[blockIdx.x] = (int32_t)total;
 }
 
-// Each site to its slot (its CTA's first slot plus its rank in the CTA),
-// while the slot is below M; then the slots past the sites.
+// Pass 2: a bit word a thread; each site to its slot (its CTA's first
+// slot, the CTA's sites in the words before, the bits below it), while
+// the slot is below M; then the slots past the sites.
 __global__ void __launch_bounds__(CALL_THREADS)
     compact_sites(const int32_t* __restrict__ bins,
-                  const uint8_t* __restrict__ ref, int length,
+                  const uint8_t* __restrict__ ref,
                   const int32_t* __restrict__ params,
+                  const uint32_t* __restrict__ bits,
                   const int32_t* __restrict__ offsets, int n_ctas, int M,
                   int32_t* __restrict__ out) {
   const Params q = load_params(params);
@@ -303,23 +501,18 @@ __global__ void __launch_bounds__(CALL_THREADS)
   int32_t* depth = is_het + M;
   int32_t* alt_count = depth + M;
   if (blockIdx.x == 0 && threadIdx.x == 0) out[0] = n_sites;
-  uint32_t run = (uint32_t)offsets[blockIdx.x];
-  const int p0 = blockIdx.x * POS_PER_CTA;
-  for (int k = 0; k < CALL_ROUNDS; ++k) {
-    const int p = p0 + k * CALL_THREADS + (int)threadIdx.x;
-    Call c{};
-    if (p < length) c = call_at(bins, ref, p, q);
-    uint32_t round_sites;
-    const uint32_t slot =
-        run + block_exclusive_scan<CALL_THREADS>(c.site, &round_sites);
-    if (c.site && slot < (uint32_t)M) {
-      site_idx[slot] = p;
-      alt_code[slot] = c.alt;
-      is_het[slot] = c.het;
-      depth[slot] = c.depth;
-      alt_count[slot] = c.alt_count;
-    }
-    run += round_sites;
+  const int wi = blockIdx.x * CALL_THREADS + (int)threadIdx.x;
+  uint32_t word = bits[wi], unused;
+  uint32_t slot = (uint32_t)offsets[blockIdx.x] +
+                  block_exclusive_scan<CALL_THREADS>(__popc(word), &unused);
+  for (; word && slot < (uint32_t)M; word &= word - 1, ++slot) {
+    const int p = wi * 32 + __ffs(word) - 1;
+    const Call c = call_at(bins, ref, p, q);
+    site_idx[slot] = p;
+    alt_code[slot] = c.alt;
+    is_het[slot] = c.het;
+    depth[slot] = c.depth;
+    alt_count[slot] = c.alt_count;
   }
   const int filled = (uint32_t)n_sites < (uint32_t)M ? n_sites : M;
   if (filled < M) {
@@ -335,41 +528,71 @@ __global__ void __launch_bounds__(CALL_THREADS)
   }
 }
 
+int ceil_div(i64 a, i64 b) { return (int)((a + b - 1) / b); }
+
 }  // namespace
 
 extern "C" {
 
-// Scratch each entry needs, in int32s: one per CTA and the total.
-int duet_pileup_count_scratch(int K) {
-  return (K + OPS_PER_CTA - 1) / OPS_PER_CTA + 1;
+int duet_pileup_count_tile(void) { return TILE; }
+
+// Scratch each entry needs, in int32s.  The count's, in order: [0] the
+// number of ops off the fast path; the tiles' counts, scanned in place
+// (n_tiles + 1: the last the list's length); the tiles' cursors
+// (n_tiles); the op blocks' sums (+ 1); the ops' first lanes (K); the ops
+// off the fast path (K); the tiles' lists (total / TILE + 2K).
+long long duet_pileup_count_scratch(int K, int total, int length) {
+  const i64 n_tiles = ceil_div(length, TILE);
+  return 1 + 2 * n_tiles + 1 + ceil_div(K, OP_THREADS) + 1 + 2 * (i64)K +
+         total / TILE + 2 * (i64)K;
 }
 
 int duet_pileup_call_scratch(int length) {
-  return (length + POS_PER_CTA - 1) / POS_PER_CTA + 1;
+  const int ctas = ceil_div(length, POS_PER_CTA);
+  return ctas + 1 + ctas * CALL_THREADS;
 }
 
-// Zero `bins` ((4 * length + 1) int32) and count the `total` lanes of the
-// ops into it on `stream` (a cudaStream_t).  `scratch` holds
-// duet_pileup_count_scratch(K) int32s.  Returns the first CUDA error as an
-// int (0 on success).
+// Count the `total` lanes of the ops into `bins` ((4 * length + 1) int32,
+// 16-byte aligned; every bin is written) on `stream` (a cudaStream_t).
+// `scratch` holds duet_pileup_count_scratch(K, total, length) int32s.
+// Returns the first CUDA error as an int (0 on success).
 int duet_pileup_count(const void* ops4, int K, const void* payload, int nb,
                       int total, int length, void* bins, void* scratch,
                       void* stream) {
-  if (K < 1 || nb < 1 || total < 0 || length < 1 || length > (1 << 28))
+  if (K < 1 || nb < 1 || total < 0 || length < 1 || length > (1 << 28) ||
+      ((uintptr_t)bins & 15))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const int ctas = duet_pileup_count_scratch(K) - 1;
-  cudaError_t err = cudaMemsetAsync(
-      bins, 0, (size_t)(4 * length + 1) * sizeof(int32_t), st);
-  if (err != cudaSuccess) return (int)err;
   const int32_t* ops = (const int32_t*)ops4;
-  int32_t* first = (int32_t*)scratch;
-  op_block_sums<<<ctas, COUNT_THREADS, 0, st>>>(ops + 2 * (size_t)K, K,
-                                                 first);
-  scan_kernel<<<1, SCAN_THREADS, 0, st>>>(first, ctas);
-  count_kernel<<<ctas, COUNT_THREADS, 0, st>>>(
-      ops, K, (const uint8_t*)payload, nb, total, length, first,
-      (int32_t*)bins);
+  const int n_tiles = ceil_div(length, TILE);
+  const int op_ctas = ceil_div(K, OP_THREADS);
+  int32_t* slow_n = (int32_t*)scratch;
+  int32_t* tile_off = slow_n + 1;
+  int32_t* cursor = tile_off + n_tiles + 1;
+  int32_t* sums = cursor + n_tiles;
+  int32_t* first = sums + op_ctas + 1;
+  int32_t* slow = first + K;
+  int32_t* list = slow + K;
+  int32_t* out = (int32_t*)bins;
+  cudaError_t err = cudaFuncSetAttribute(
+      tile_count, cudaFuncAttributeMaxDynamicSharedMemorySize, TILE_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const CountArgs a{ops, ops + K, ops + 2 * (size_t)K, ops + 3 * (size_t)K,
+                    (const uint8_t*)payload, K, nb, total, length,
+                    ((uintptr_t)payload & 3) == 0};
+  op_block_sums<<<op_ctas, OP_THREADS, 0, st>>>(a.len, K, sums, slow_n,
+                                                2 + 2 * n_tiles,
+                                                out + 4 * length, total);
+  scan_kernel<<<1, SCAN_THREADS, 0, st>>>(sums, op_ctas);
+  op_tiles<<<op_ctas, OP_THREADS, 0, st>>>(a, sums, first, tile_off, slow_n,
+                                           slow);
+  scan_kernel<<<1, SCAN_THREADS, 0, st>>>(tile_off, n_tiles);
+  op_scatter<<<op_ctas, OP_THREADS, 0, st>>>(a, first, tile_off, cursor,
+                                             list);
+  tile_count<<<n_tiles, TILE_THREADS, TILE_SMEM, st>>>(a, first, tile_off,
+                                                       list, out);
+  second_path<<<SECOND_CTAS, OP_THREADS, 0, st>>>(a, first, slow_n, slow,
+                                                  out);
   return (int)cudaGetLastError();
 }
 
@@ -383,15 +606,16 @@ int duet_pileup_call(const void* bins, const void* ref, int length,
   if (length < 1 || length > (1 << 28) || max_sites < 1)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const int ctas = duet_pileup_call_scratch(length) - 1;
+  const int ctas = ceil_div(length, POS_PER_CTA);
   int32_t* offsets = (int32_t*)scratch;
-  site_counts<<<ctas, CALL_THREADS, 0, st>>>(
+  uint32_t* bits = (uint32_t*)(offsets + ctas + 1);
+  call_bits<<<ctas, CALL_THREADS, 0, st>>>(
       (const int32_t*)bins, (const uint8_t*)ref, length,
-      (const int32_t*)params, offsets);
+      (const int32_t*)params, bits, offsets);
   scan_kernel<<<1, SCAN_THREADS, 0, st>>>(offsets, ctas);
   compact_sites<<<ctas, CALL_THREADS, 0, st>>>(
-      (const int32_t*)bins, (const uint8_t*)ref, length,
-      (const int32_t*)params, offsets, ctas, max_sites, (int32_t*)out);
+      (const int32_t*)bins, (const uint8_t*)ref, (const int32_t*)params,
+      bits, offsets, ctas, max_sites, (int32_t*)out);
   return (int)cudaGetLastError();
 }
 

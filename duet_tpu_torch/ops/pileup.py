@@ -25,8 +25,9 @@ Two hand kernels on the card (``csrc/pileup.cu``, ``ops.pileup_kernel``):
 their plain versions here, ``count_plain`` and ``call_plain``, run on CPU
 tensors and are what the kernels are held against.
 
-JAX drops out-of-bounds scatter updates and clamps gathers; torch raises
-on both, so every index here is masked or clamped explicitly.
+JAX drops out-of-bounds scatter updates, and a gather counts a negative
+index from the end and then clamps; torch raises on both, so every index
+here is masked, wrapped or clamped explicitly.
 """
 
 from __future__ import annotations
@@ -102,6 +103,13 @@ def pileup_counts(positions: torch.Tensor, bases: torch.Tensor,
 LANE_CHUNK = 1 << 24
 
 
+def _gather_index(i: torch.Tensor, n: int) -> torch.Tensor:
+    """The element a jnp gather ``x[i]`` of an n-element array reads: a
+    negative index counts from the end (i + n), then the index is clamped
+    to [0, n - 1], so i < -n still reads element 0."""
+    return torch.clamp(torch.where(i < 0, i + n, i), 0, n - 1)
+
+
 def count_plain(ops4: torch.Tensor, payload_ref: torch.Tensor, *,
                 total: int, length: int) -> torch.Tensor:
     """Expand and count: the (4*length + 1,) int32 bins of one window's
@@ -130,7 +138,7 @@ def count_plain(ops4: torch.Tensor, payload_ref: torch.Tensor, *,
                                              out_int32=True), max=last_op)
         within = lane - first_lane[seg]
         qidx = op_q[seg] + within
-        byte = payload[torch.clamp(qidx >> 1, 0, nb - 1)].to(_I32)
+        byte = payload[_gather_index(qidx >> 1, nb)].to(_I32)
         nib = (byte >> ((qidx & 1) << 2)) & 0xF
         base = nib & 7
         keep = (base < 4) & ((nib >> 3) > 0) & (lane < n_real)

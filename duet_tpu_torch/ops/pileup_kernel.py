@@ -2,10 +2,12 @@
 ``duet_tpu.ops.pileup._packed_impl`` (which XLA fuses for the TPU).
 
 - ``pileup_count``: expand the packed reads of one window and count them
-  into the (4L + 1,) int32 bins (the lanes, ``_hist_counts``).
+  into the (4L + 1,) int32 bins (the lanes, ``_hist_counts``), a
+  coordinate tile of ``tile_positions()`` at a time in shared memory; the
+  ops that break the tile rule (``second_path_ops``) go lane by lane.
 - ``pileup_call``: call the sites of the bins and compact them into the
   flat int32 readback (``call_sites``, ``jnp.nonzero(size=)`` and its
-  gathers).
+  gathers), reading the bins once and then only the sites'.
 
 ``ops.pileup.packed_window_body`` runs the two in a row.
 
@@ -55,9 +57,12 @@ def _library() -> ctypes.CDLL:
                                      ctypes.c_int, ctypes.c_void_p,
                                      ctypes.c_int] + [ctypes.c_void_p] * 3
     lib.duet_pileup_call.restype = ctypes.c_int
-    for fn in (lib.duet_pileup_count_scratch, lib.duet_pileup_call_scratch):
-        fn.argtypes = [ctypes.c_int]
-        fn.restype = ctypes.c_int
+    lib.duet_pileup_count_scratch.argtypes = [ctypes.c_int] * 3
+    lib.duet_pileup_count_scratch.restype = ctypes.c_longlong
+    lib.duet_pileup_call_scratch.argtypes = [ctypes.c_int]
+    lib.duet_pileup_call_scratch.restype = ctypes.c_int
+    lib.duet_pileup_count_tile.argtypes = []
+    lib.duet_pileup_count_tile.restype = ctypes.c_int
     lib.duet_pileup_error_string.argtypes = [ctypes.c_int]
     lib.duet_pileup_error_string.restype = ctypes.c_char_p
     return lib
@@ -89,11 +94,53 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def tile_positions() -> int:
+    """The positions of one count tile of the ``pileup_count`` kernel."""
+    return _library().duet_pileup_count_tile()
+
+
+def second_path_ops(ops4: torch.Tensor, payload_ref: torch.Tensor, *,
+                    total: int, length: int) -> int:
+    """The ops of a window that ``pileup_count`` counts lane by lane, off
+    its tiles: those with lanes that can count (lanes of [0, min(n_real,
+    total)), the last op's running to that end) of which one has its key
+    outside [0, 4*length) or wrapping (ref < 0 or ref + lanes > length)
+    or its nibble outside the payload (q < 0 or q + lanes > 2 nb)."""
+    ref, q, ln = (ops4[i].long() for i in range(3))
+    nb = payload_ref.shape[0] - length
+    limit = min(max(int(ops4[3, 0]), 0), total)
+    ends = torch.cumsum(ln, 0)
+    lo = (ends - ln).clamp(min=0)
+    hi = ends.clamp(max=limit)
+    hi[-1] = limit
+    lanes = hi - (ends - ln)
+    off = (ref < 0) | (ref + lanes > length) | (q < 0) | (q + lanes > 2 * nb)
+    return int(((hi > lo) & off).sum())
+
+
 def pileup_count(ops4: torch.Tensor, payload_ref: torch.Tensor, *,
                  total: int, length: int) -> torch.Tensor:
     """The (4*length + 1,) int32 bins of one window's `total` lanes, keys
     pos*4 + base, the last bin the sentinel; see ``ops.pileup`` for the
     inputs."""
+    return _pileup_count(ops4, payload_ref, total, length)[0]
+
+
+def pileup_count_report(ops4: torch.Tensor, payload_ref: torch.Tensor, *,
+                        total: int, length: int) -> tuple[torch.Tensor,
+                                                          dict]:
+    """``pileup_count`` on CUDA tensors, with what the kernel saw: its tile
+    size, its ops off the tiles and its (op, tile) entries."""
+    if ops4.device.type != "cuda":
+        raise ValueError("pileup_count_report needs CUDA tensors")
+    bins, scratch = _pileup_count(ops4, payload_ref, total, length)
+    n_tiles = -(-length // tile_positions())
+    return bins, {"tile_positions": tile_positions(),
+                  "second_path_ops": int(scratch[0]),
+                  "tile_entries": int(scratch[1 + n_tiles])}
+
+
+def _pileup_count(ops4, payload_ref, total, length):
     dev = _device_of(ops4, payload_ref)
     if ops4.dtype != _I32 or ops4.dim() != 2 or ops4.shape[0] != 4 or \
             ops4.shape[1] < 8:
@@ -107,19 +154,20 @@ def pileup_count(ops4: torch.Tensor, payload_ref: torch.Tensor, *,
                          f"reference and 0 <= total < 2^31; got length="
                          f"{length}, {nb} payload bytes, total={total}")
     if dev.type == "cpu":
-        return count_plain(ops4, payload_ref, total=total, length=length)
+        return count_plain(ops4, payload_ref, total=total,
+                           length=length), None
     lib = _library()
     K = ops4.shape[1]
     bins = torch.empty(4 * length + 1, dtype=_I32, device=dev)
-    scratch = torch.empty(lib.duet_pileup_count_scratch(K), dtype=_I32,
-                          device=dev)
+    scratch = torch.empty(lib.duet_pileup_count_scratch(K, total, length),
+                          dtype=_I32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.duet_pileup_count(ops4.data_ptr(), K, payload_ref.data_ptr(),
                                    nb, total, length, bins.data_ptr(),
                                    scratch.data_ptr(), _stream(dev))
     _raise_on(rc, "pileup_count")
     _count("pileup_count")
-    return bins
+    return bins, scratch
 
 
 def pileup_call(bins: torch.Tensor, ref_codes: torch.Tensor,

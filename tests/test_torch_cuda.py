@@ -107,7 +107,8 @@ def test_pileup_kernels_match_plain(cuda_device, case, scale):
     """Both pileup kernels against their plain versions on the card, on
     chip_smoke.py's edge cases: the bins with their sentinel, then the
     whole flat output (slots past the sites included), each kernel once;
-    and packed_window_body on CUDA tensors runs the kernels."""
+    packed_window_body on CUDA tensors runs the kernels; and the count
+    kernel sends the ops that second_path_ops names off its tiles."""
     ops4, payload, total, L, max_sites = chip_smoke.pileup_edge_inputs(
         case, scale)
     o = torch.from_numpy(ops4).to(cuda_device)
@@ -129,6 +130,12 @@ def test_pileup_kernels_match_plain(cuda_device, case, scale):
     assert torch.equal(got, want)
     assert pileup_kernel.LAUNCHES["pileup_count"] == \
         before["pileup_count"] + 2
+    bins, seen = pileup_kernel.pileup_count_report(o, p, total=total,
+                                                   length=L)
+    assert torch.equal(bins, want_bins)
+    assert seen["second_path_ops"] == pileup_kernel.second_path_ops(
+        o, p, total=total, length=L)
+    assert seen["tile_positions"] == pileup_kernel.tile_positions()
 
 
 def _small_batch(seed, B):

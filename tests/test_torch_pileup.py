@@ -157,8 +157,50 @@ def test_pileup_edge_cases_reach_their_edges(case):
         assert (((nonref == top[:, None]).sum(1) > 1) & (top > 0)).any()
     elif case == "overflow":
         assert n_sites > max_sites == 8
-    else:
+    elif case == "one_position":
         assert L == 1 and ((ops4[0] + ln)[:tail] > 1).any()
+    elif case == "negative_query":
+        q = ops4[1][:tail].long()
+        assert ((q < 0) & (q >= -2 * nb)).any()     # counts from the end
+        assert ((q < 0) & (q + ln[:tail] > 0)).any()  # crosses nibble 0
+        assert (q < -2 * nb).any()                  # clamped after the wrap
+    elif case == "tile_seams":
+        start, end = ops4[0][:tail].long(), (ops4[0] + ln)[:tail].long()
+        assert L >= 8 * 8192 and L % 1024 > 0
+        assert ((start + 3) % 1024 <= 3).all()
+        assert ((end - 1) // 1024 > start // 1024).any()
+        assert ((end - 1) // 1024 - start // 1024 >= 3).any()
+        per_seam = torch.bincount((start + 3) // 1024)
+        assert per_seam.max() >= 10 * per_seam[per_seam > 0].median()
+    else:
+        assert case == "wrapped_keys"
+        r = ops4[0][:tail].long()
+        assert (r < 0).any() and (r >= 2**31 - 21).any()
+        assert ((r >= 2**30 - 20) & (r < 2**30)).any()
+        # keys past [0, 4L) before the int32 wrap: into it after, and not
+        n = ln[:tail].long()
+        op = torch.repeat_interleave(torch.arange(tail), n)
+        within = torch.arange(len(op)) - torch.repeat_interleave(
+            torch.cumsum(n, 0) - n, n)
+        key = (r[op] + within) * 4
+        wrapped = (key + 2**31) % 2**32 - 2**31
+        off = (key < 0) | (key >= 4 * L)
+        inside = (wrapped >= 0) & (wrapped < 4 * L)
+        assert (off & inside).any() and (off & ~inside).any()
+    # the ops off the count kernel's tiles: none in the packers' layout
+    assert (pk.second_path_ops(ops4, payload, total=total, length=L) > 0) == (
+        case in ("odd_past_length", "one_position", "negative_query",
+                 "wrapped_keys"))
+
+
+@pytest.mark.parametrize("seed", [2, 3, 4])
+def test_packed_windows_keep_every_op_on_the_tiles(seed):
+    """A window as _device_window packs it has no op off the count
+    kernel's tiles."""
+    ops4, payload, total, Lw = packed_inputs(seed)
+    assert pk.second_path_ops(torch.from_numpy(ops4),
+                              torch.from_numpy(payload), total=total,
+                              length=Lw) == 0
 
 
 def test_cpu_wrappers_run_the_plain_version_and_count_nothing():
@@ -176,6 +218,8 @@ def test_cpu_wrappers_run_the_plain_version_and_count_nothing():
     assert torch.equal(tp.packed_window_body(ops4, payload, total=total,
                                              length=L, max_sites=max_sites),
                        want)
+    with pytest.raises(ValueError, match="CUDA"):
+        pk.pileup_count_report(ops4, payload, total=total, length=L)
     assert pk.LAUNCHES == {"pileup_count": 0, "pileup_call": 0}
 
 
