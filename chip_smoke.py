@@ -893,17 +893,19 @@ def phase_ingest(report: dict, data: str) -> None:
 
     from duet_tpu_torch.io import native_ingest
     from duet_tpu_torch.io.readstore import load_read_store
+    from duet_tpu_torch.utils import spans
 
     t = time.perf_counter()
     lib = native_ingest.get_lib()
     build_s = time.perf_counter() - t
     lib.zlibVersion.restype = ctypes.c_char_p
     bam = os.path.join(data, "reads.bam")
+    spans.reset("ingest.")
     t = time.perf_counter()
     store = native_ingest.load_read_store_native(
         bam, n_threads=min(4, os.cpu_count() or 1))
     native_s = time.perf_counter() - t
-    stats = native_ingest.LAST_DECODE_STATS
+    stats = native_ingest.decode_stats()
     t = time.perf_counter()
     want = load_read_store(bam)
     python_s = time.perf_counter() - t
@@ -1982,6 +1984,7 @@ def phase_train(report: dict, work: str) -> None:
 
     from duet_tpu_torch.io import native_ingest
     from duet_tpu_torch.models import nn_snp
+    from duet_tpu_torch.utils import spans
 
     def digest(path):
         with open(path, "rb") as f:
@@ -1997,13 +2000,13 @@ def phase_train(report: dict, work: str) -> None:
         stamps[msg.split(":")[0]] = time.perf_counter()
         lines.append(msg)
 
-    native_ingest.LAST_DECODE_STATS = None
+    spans.reset("ingest.")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     nn_snp.train(out, steps=TRAIN_STEPS, device=torch.device("cuda"),
                  log=log)
     wall = time.perf_counter() - t0
-    reader = "native" if native_ingest.LAST_DECODE_STATS else "python"
+    reader = "native" if native_ingest.decode_stats() else "python"
     if digest(nn_snp.DEFAULT_WEIGHTS) != shipped:
         raise AssertionError("training changed the shipped weights")
     n = int(lines[0].split()[2])

@@ -11,6 +11,7 @@ records the run with torch.profiler into OUTPUT/profile/.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 
@@ -20,6 +21,7 @@ from duet_tpu_torch.pipeline import (
     run_pipeline,
     run_pipeline_streaming,
 )
+from duet_tpu_torch.utils import spans
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -114,8 +116,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "HP/PC/PS tags (reference artifact parity)")
     p.add_argument("--profile", action="store_true",
                    help="capture a torch.profiler trace of the run into "
-                        "OUTPUT/profile/ (Chrome trace JSON: view with "
-                        "Perfetto or chrome://tracing)")
+                        "OUTPUT/profile/ (Chrome trace JSON with the "
+                        "program's spans as ranges: view with Perfetto or "
+                        "chrome://tracing), and the card's busy and idle "
+                        "seconds by span in idle_by_span.json")
     mh = p.add_argument_group(
         "multi-host", "run one process per host against a shared OUTPUT dir: "
         "contigs are round-robin owned, stage outputs exchanged as part "
@@ -172,14 +176,18 @@ def _profiled(args, cfg: PipelineConfig) -> int:
     OUTPUT/profile/trace.json (trace.p{pid}.json on process pid > 0, as
     the logs are named), also when the run raises.  The whole run is
     recorded, without shapes or stacks, so the trace stays small at
-    chromosome scale."""
+    chromosome scale.  The program's spans (``utils.spans``) are ranges
+    of the trace; once the run ends, idle_by_span.json
+    (idle_by_span.p{pid}.json) holds the trace's window, the card's busy
+    seconds, and each span's host seconds, the card's busy seconds inside
+    it and the idle seconds it owns (``spans.idle_by_span``)."""
     from torch.profiler import ProfilerActivity, profile
 
     trace_dir = os.path.join(args.OUTPUT, "profile")
     os.makedirs(trace_dir, exist_ok=True)
     pid = cfg.process_id or 0
-    path = os.path.join(trace_dir, "trace.json" if pid == 0
-                        else f"trace.p{pid}.json")
+    suffix = ".json" if pid == 0 else f".p{pid}.json"
+    path = os.path.join(trace_dir, "trace" + suffix)
     activities = [ProfilerActivity.CPU]
     if cfg.torch_device().type == "cuda":
         activities.append(ProfilerActivity.CUDA)
@@ -197,6 +205,11 @@ def _profiled(args, cfg: PipelineConfig) -> int:
                   file=sys.stderr)
         raise
     prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    idle = spans.idle_by_span(events, spans.snapshot()["spans"])
+    with open(os.path.join(trace_dir, "idle_by_span" + suffix), "w") as f:
+        json.dump(idle, f, indent=2)
     return code
 
 

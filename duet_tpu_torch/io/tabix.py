@@ -18,6 +18,7 @@ import struct
 import zlib
 
 from duet_tpu_torch.io.bgzf import BgzfWriter
+from duet_tpu_torch.utils.spans import span
 
 TBI_MAGIC = b"TBI\x01"
 _VCF_FORMAT = 2
@@ -201,6 +202,7 @@ def build_tabix_index(vcf_gz_path: str) -> bytes:
     return bytes(out)
 
 
+@span("index.tabix")
 def write_tabix_index(vcf_gz_path: str, tbi_path: str | None = None) -> str:
     tbi_path = tbi_path or vcf_gz_path + ".tbi"
     payload = build_tabix_index(vcf_gz_path)

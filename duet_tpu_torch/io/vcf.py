@@ -20,6 +20,7 @@ from dataclasses import dataclass, field
 
 from duet_tpu_torch.io.bgzf import BgzfReader, BgzfWriter, is_bgzf
 from duet_tpu_torch.utils.chrom import matches_chrom, resolve_contig_names
+from duet_tpu_torch.utils.spans import span
 
 
 def open_maybe_gzip(path: str, mode: str = "rt"):
@@ -187,6 +188,7 @@ PHASED_SV_HEADER_BODY = """##fileformat=VCFv4.2
 PHASED_SV_COLUMNS = "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\tVALUE\n"
 
 
+@span("write.phased_sv_vcf")
 def write_phased_sv_header(caller_vcf_path: str, output_path: str, include_all_ctgs: bool) -> None:
     """Byte-parity with reference print_sv_header (write_file.py:19-45):
     fixed meta lines, then ##contig lines copied from the base caller VCF
@@ -208,6 +210,7 @@ def write_phased_sv_header(caller_vcf_path: str, output_path: str, include_all_c
         f.write(header)
 
 
+@span("write.phased_sv_vcf")
 def append_phased_sv_records(phased_callset: list[dict], output_path: str) -> None:
     """Byte-parity with reference print_sv (write_file.py:6-17): Duet.<idx>
     IDs starting at 1, 'SVLEN=<signed>;SVTYPE=<T>' INFO, HP:PS genotype."""

@@ -40,6 +40,7 @@ from duet_tpu_torch.models.nn_snp_host import (
     load_params,
     save_params,
 )
+from duet_tpu_torch.utils.spans import span
 
 
 class SnpMLP(nn.Module):
@@ -96,21 +97,24 @@ def nn_call_snps(contig: str, counts: np.ndarray, ref_codes: np.ndarray,
 
     Mirrors ``duet_tpu.models.nn_snp.nn_call_snps``: candidate sites from
     the candidate gate, features from the extractor, then one forward
-    pass per `batch` candidates on `device`."""
+    pass per `batch` candidates on `device` (the spans
+    ``snp_calling.features`` and ``snp_calling.network``)."""
     from duet_tpu_torch.models.snp_caller_host import ContigSnps
 
-    pos, alt_code, alt_count, depth = candidate_sites(counts, ref_codes)
-    feats = extract_features(counts, ref_codes, pos, alt_code)
+    with span("snp_calling.features"):
+        pos, alt_code, alt_count, depth = candidate_sites(counts, ref_codes)
+        feats = extract_features(counts, ref_codes, pos, alt_code)
     n = len(pos)
     cls = np.zeros(0, dtype=np.int64)
     if n:
         require(device)
-        model = model if model is not None else load_model(device=device)
-        chunks = []
-        with torch.no_grad():
-            for s in range(0, n, batch):
-                x = torch.from_numpy(feats[s:s + batch]).to(device)
-                chunks.append(model(x).argmax(dim=1).cpu().numpy())
+        with span("snp_calling.network"):
+            model = model if model is not None else load_model(device=device)
+            chunks = []
+            with torch.no_grad():
+                for s in range(0, n, batch):
+                    x = torch.from_numpy(feats[s:s + batch]).to(device)
+                    chunks.append(model(x).argmax(dim=1).cpu().numpy())
         cls = np.concatenate(chunks)
     keep = cls >= 1
     return ContigSnps(

@@ -37,6 +37,7 @@ from duet_tpu_torch.models.snp_caller_host import (
     match_op_table,
     pileup_with_counts,
 )
+from duet_tpu_torch.utils.spans import span
 
 _CPU = torch.device("cpu")
 
@@ -51,12 +52,14 @@ def call_snps_any(contig: str, counts: np.ndarray, ref_codes: np.ndarray,
 
     model = cfg.model
     if model == "auto":
-        model = choose_snp_model(counts, ref_codes)
+        with span("snp_calling.model_choice"):
+            model = choose_snp_model(counts, ref_codes)
     if model == "nn":
         dispatch.record("snp_pileup", "nn")
         return nn_call_snps(contig, counts, ref_codes, device=nn_device)
     dispatch.record("snp_pileup", "host")
-    return call_snps(contig, counts, ref_codes, cfg)
+    with span("snp_calling.count_rule"):
+        return call_snps(contig, counts, ref_codes, cfg)
 
 
 def _host_codes(reads, cfg: SnpCallConfig) -> np.ndarray:
@@ -312,19 +315,24 @@ def call_contig_snps(contig: str, cr, ref_codes: np.ndarray,
 
     if cfg.device and cfg.model in ("counts", "auto"):
         snps = call_snps_device(contig, cr, ref_codes, cfg, device=device)
-        return snps, _at_site_obs(cr, cfg, snps.pos)
-    try:
-        counts = pileup_counts_native(cr, cfg.min_mapq, cfg.min_base_qual,
-                                      len(ref_codes))
-    except (NativeUnavailable, OSError):
-        counts = None
-    if counts is not None:
-        snps = call_snps_any(contig, counts, ref_codes, cfg, nn_device)
-        site_obs, _ = pileup_obs_native(cr, cfg.min_mapq, site_pos=snps.pos)
-        return snps, site_obs
-    obs, counts = pileup_with_counts(cr, cfg, len(ref_codes))
+        with span("snp_calling.at_site"):
+            return snps, _at_site_obs(cr, cfg, snps.pos)
+    obs = None
+    with span("snp_calling.counts"):
+        try:
+            counts = pileup_counts_native(cr, cfg.min_mapq,
+                                          cfg.min_base_qual, len(ref_codes))
+        except (NativeUnavailable, OSError):
+            counts = None
+        if counts is None:
+            obs, counts = pileup_with_counts(cr, cfg, len(ref_codes))
     snps = call_snps_any(contig, counts, ref_codes, cfg, nn_device)
-    return snps, filter_observations_to_sites(*obs, snps.pos)
+    with span("snp_calling.at_site"):
+        if obs is None:
+            site_obs, _ = pileup_obs_native(cr, cfg.min_mapq,
+                                            site_pos=snps.pos)
+            return snps, site_obs
+        return snps, filter_observations_to_sites(*obs, snps.pos)
 
 
 def mesh_pileup_ok(cfg: SnpCallConfig) -> bool:

@@ -22,6 +22,7 @@ import numpy as np
 
 from duet_tpu_torch.io.readstore import ContigReads
 from duet_tpu_torch.io.vcf import write_vcf
+from duet_tpu_torch.utils.spans import span
 
 
 BASES = "ACGT"
@@ -380,6 +381,7 @@ def pileup_with_counts(cr: ContigReads, cfg: SnpCallConfig, length: int):
                                   cfg.min_base_qual)
 
 
+@span("write.pileup_vcf")
 def write_pileup_vcf(path: str, snps: dict[str, ContigSnps],
                      contig_lengths: dict[str, int]) -> None:
     """pileup.vcf(.gz) in the shape downstream stages consume

@@ -43,6 +43,7 @@ from duet_tpu_torch.models.snp_phaser_host import (
     _switch_correct,
     build_allele_matrix,
 )
+from duet_tpu_torch.utils.spans import span
 
 # auto's read scorer: the one whose route beat the host's from the lower
 # size, or on a tie the faster past it (route_crossover run twice in one
@@ -401,18 +402,20 @@ def phase_contig(cr, snps, cfg=None, sweeps: int = 2,
     if mesh is not None:
         device_min_nnz = 0
         device = mesh.devices[0][0]
-    am, phase, block_id, block_ps = phase_contig_core(
-        cr, snps, cfg, sweeps,
-        use_device=use_device, obs=obs,
-        min_junction_evidence=min_junction_evidence,
-        device_min_nnz=device_min_nnz,
-        adaptive_junction_split=adaptive_junction_split,
-        protect_intervals=protect_intervals, device=device)
-    if use_device and len(am.row) >= device_min_nnz:
-        tagging = _haplotag_device(am, phase, block_id, block_ps, mesh=mesh,
-                                   mode=mode, device=device)
-    else:
-        tagging = _haplotag(am, phase, block_id, block_ps)
+    with span("snp_phasing.refine"):
+        am, phase, block_id, block_ps = phase_contig_core(
+            cr, snps, cfg, sweeps,
+            use_device=use_device, obs=obs,
+            min_junction_evidence=min_junction_evidence,
+            device_min_nnz=device_min_nnz,
+            adaptive_junction_split=adaptive_junction_split,
+            protect_intervals=protect_intervals, device=device)
+    with span("snp_phasing.score"):
+        if use_device and len(am.row) >= device_min_nnz:
+            tagging = _haplotag_device(am, phase, block_id, block_ps,
+                                       mesh=mesh, mode=mode, device=device)
+        else:
+            tagging = _haplotag(am, phase, block_id, block_ps)
     return _as_result(am, phase, block_id, block_ps, tagging)
 
 

@@ -47,6 +47,7 @@ from duet_tpu_torch.models.snp_caller_host import (
     SnpCallConfig,
     pileup_observations,
 )
+from duet_tpu_torch.utils.spans import span
 
 
 PC_PER_MARGIN = 10   # phred-like scale: PC = 10 * quality-weighted margin
@@ -596,6 +597,7 @@ def _as_result(am, phase, block_id, block_ps, tagging) -> PhaseResult:
                        read_hap, read_ps, read_pc, row_names=am.row_names)
 
 
+@span("snp_phasing.read_haps")
 def read_hap_map(cr: ContigReads, result: PhaseResult) -> dict[str, tuple[int, int, int]]:
     """name -> (hap, ps, pc) join map, the decision stage's input (mirrors
     reference read_hap_bam's dict, sv_phasing_fn.py:11-34).  Rows are
@@ -612,6 +614,7 @@ def read_hap_map(cr: ContigReads, result: PhaseResult) -> dict[str, tuple[int, i
     return out
 
 
+@span("write.phased_snp_vcf")
 def write_phased_snp_vcf(path: str, contig: str, snps: ContigSnps,
                          result: PhaseResult) -> None:
     """Per-contig phased SNP VCF (artifact parity with the reference's

@@ -40,6 +40,7 @@ import numpy as np
 
 from duet_tpu_torch.io.readstore import ContigReads
 from duet_tpu_torch.io.vcf import write_vcf
+from duet_tpu_torch.utils.spans import span
 
 
 SVTYPE_INS = 0
@@ -502,6 +503,7 @@ def _lower_median(vals: list[int]) -> int:
     return srt[(len(srt) - 1) // 2]
 
 
+@span("sv_calling.bnds")
 def call_bnds(evidence: dict[str, BndEvidence],
               cfg: SvCallConfig) -> list[BndCall]:
     """Cluster breakend signatures per (contig pair, orientation) with gap
@@ -551,6 +553,7 @@ def bnd_alt(side_this: str, side_mate: str, mate_contig: str,
     return "N" + bracket if side_this == "L" else bracket + "N"
 
 
+@span("write.sv_vcf")
 def write_sv_vcf(path: str, calls: dict[str, list[SvCall]],
                  contig_lengths: dict[str, int], family: str = "cutesv",
                  bnds: list[BndCall] | None = None) -> None:

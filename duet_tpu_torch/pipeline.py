@@ -75,9 +75,15 @@ from duet_tpu_torch.models.sv_caller_host import (
     write_sv_vcf,
 )
 from duet_tpu_torch.models.sv_phaser import phase_callset
-from duet_tpu_torch.utils import devcost, dispatch
+from duet_tpu_torch.utils import devcost, dispatch, spans
 from duet_tpu_torch.utils.chrom import resolve_contig_names, strip_chr
-from duet_tpu_torch.utils.logging import StageTimer, get_logger, setup_logging
+from duet_tpu_torch.utils.logging import (
+    StageTimer,
+    get_logger,
+    setup_logging,
+    stage_key,
+)
+from duet_tpu_torch.utils.spans import span
 
 _CPU = torch.device("cpu")
 
@@ -268,8 +274,7 @@ class PipelineConfig:
     def device_size_gates(self) -> dict:
         """metrics.json's record of auto's gates and its read scorer (the
         pileup's two are None but under --snp-model counts, where they
-        route); the link-probe keys of the JAX package stay None (the port
-        runs no probe)."""
+        route)."""
         from duet_tpu_torch.models.snp_phaser import HAPLOTAG_DEVICE_MODE
 
         return {
@@ -279,8 +284,6 @@ class PipelineConfig:
             "phasing_min_nnz": self.PHASING_GATE_H100_NNZ,
             "decide_min_calls": self.DECIDE_GATE_H100_CALLS,
             "haplotag_mode": HAPLOTAG_DEVICE_MODE,
-            "h2d_probe_mb_s": None,
-            "h2d_worst_put_s": None,
         }
 
     def nn_device(self) -> torch.device:
@@ -467,6 +470,7 @@ def _sv_protect_intervals(cfg: PipelineConfig, st: PipelineState, contig: str,
     return support_read_intervals(cr, names)
 
 
+@span("write.haplotag_table")
 def _write_haplotag_table(path: str, haps: dict[str, tuple[int, int, int]]) -> None:
     """name<TAB>hap<TAB>ps<TAB>pc — the framework's equivalent of the
     haplotagged-BAM HP/PC/PS artifact (reference snp_phasing.py:27-29)."""
@@ -475,6 +479,7 @@ def _write_haplotag_table(path: str, haps: dict[str, tuple[int, int, int]]) -> N
             f.write(f"{name}\t{hap}\t{ps}\t{pc}\n")
 
 
+@span("write.haplotag_bam")
 def _write_haplotag_bam(path: str, cr, haps: dict[str, tuple[int, int, int]],
                         contig_lengths: dict[str, int],
                         threads: int = 1) -> dict:
@@ -603,13 +608,14 @@ def stage_sv_calling(cfg: PipelineConfig, st: PipelineState) -> None:
                                                  mesh=st.mesh)
 
     work = list(st.store.contigs.items())
-    if cfg.threads > 1 and len(work) > 1 and st.mesh is None:
-        # mesh runs go contig-serial: the shards already occupy every
-        # device, and serial dispatch keeps them deterministic
-        with ThreadPoolExecutor(cfg.threads) as ex:
-            results = list(ex.map(one, work))
-    else:
-        results = list(map(one, work))
+    with span("sv_calling.contigs"):
+        if cfg.threads > 1 and len(work) > 1 and st.mesh is None:
+            # mesh runs go contig-serial: the shards already occupy every
+            # device, and serial dispatch keeps them deterministic
+            with ThreadPoolExecutor(cfg.threads) as ex:
+                results = list(ex.map(one, work))
+        else:
+            results = list(map(one, work))
     calls = {c: r[0] for c, r in results}
     evidence = {c: r[1] for c, r in results}
     st.sv_calls = calls  # the phasing stage protects their support spans
@@ -679,13 +685,15 @@ def stage_snp_phasing(cfg: PipelineConfig, st: PipelineState) -> None:
                 protect_intervals=_sv_protect_intervals(cfg, st, contig),
                 device=dev)
 
-        if cfg.threads > 1 and len(work) > 1:
-            with ThreadPoolExecutor(cfg.threads) as ex:
-                cores = dict(ex.map(core, work))
-        else:
-            cores = dict(map(core, work))
-        scored = score_contigs_batched(cores, use_device, min_nnz, dev,
-                                       mode=cfg.haplotag_mode())
+        with span("snp_phasing.refine"):
+            if cfg.threads > 1 and len(work) > 1:
+                with ThreadPoolExecutor(cfg.threads) as ex:
+                    cores = dict(ex.map(core, work))
+            else:
+                cores = dict(map(core, work))
+        with span("snp_phasing.score"):
+            scored = score_contigs_batched(cores, use_device, min_nnz, dev,
+                                           mode=cfg.haplotag_mode())
     for contig, snps in work:
         cr = st.store.contigs[contig]
         result = scored[contig]
@@ -751,21 +759,11 @@ def _merge_parts_and_write(cfg: PipelineConfig, nproc: int) -> None:
     )
 
 
-def stage_sv_phasing(cfg: PipelineConfig, st: PipelineState) -> None:
-    """Mirrors ``duet_tpu.pipeline.stage_sv_phasing``, with the decision
-    pass on the device when ``decide_on_device``.  In a multi-process run
-    every process meets at a barrier, and process 0 alone merges the parts
-    and writes the final artifacts."""
-    pid, nproc = _proc(cfg)
-    if nproc > 1:
-        _barrier(cfg, "pre-merge")
-        if pid != 0:
-            return  # single-writer emission on process 0 (SURVEY.md §5.8)
-        _merge_parts_and_write(cfg, nproc)
-    variants = os.path.join(cfg.output, "sv_calling", "variants.vcf")
-    artifact = os.path.join(cfg.output, "phased_sv.vcf")
-    if not os.path.exists(variants):
-        raise FileNotFoundError(f"sv_calling artifact missing: {variants}")
+def _sv_phasing_inputs(cfg: PipelineConfig, st: PipelineState,
+                       variants: str) -> tuple[dict, dict]:
+    """The SV calls of `variants` by chromosome, and each chromosome's
+    read-hap map under the parser's name (tables from snp_phasing/ for the
+    chromosomes this run did not phase)."""
     # -a contig list comes from the SNP-calling artifact when present, as
     # the reference's `tabix --list-chroms` on pileup.vcf.gz
     chrom_list = None
@@ -791,11 +789,33 @@ def stage_sv_phasing(cfg: PipelineConfig, st: PipelineState) -> None:
             if contig == name or strip_chr(contig) == strip_chr(name):
                 read_haps[name] = m
                 break
+    return per_chrom, read_haps
+
+
+def stage_sv_phasing(cfg: PipelineConfig, st: PipelineState) -> None:
+    """Mirrors ``duet_tpu.pipeline.stage_sv_phasing``, with the decision
+    pass on the device when ``decide_on_device``.  In a multi-process run
+    every process meets at a barrier, and process 0 alone merges the parts
+    and writes the final artifacts."""
+    pid, nproc = _proc(cfg)
+    if nproc > 1:
+        _barrier(cfg, "pre-merge")
+        if pid != 0:
+            return  # single-writer emission on process 0 (SURVEY.md §5.8)
+        _merge_parts_and_write(cfg, nproc)
+    variants = os.path.join(cfg.output, "sv_calling", "variants.vcf")
+    artifact = os.path.join(cfg.output, "phased_sv.vcf")
+    if not os.path.exists(variants):
+        raise FileNotFoundError(f"sv_calling artifact missing: {variants}")
+    with span("sv_phasing.parse"):
+        per_chrom, read_haps = _sv_phasing_inputs(cfg, st, variants)
     n_calls = sum(len(v) for v in per_chrom.values())
-    phased = phase_callset(
-        per_chrom, read_haps, cfg.sv_min_size, cfg.min_support_read,
-        use_device=cfg.decide_on_device(n_calls), phase_bnd=cfg.phase_bnd,
-        decision_model=cfg.decision_model, device=cfg.torch_device())
+    with span("sv_phasing.decide"):
+        phased = phase_callset(
+            per_chrom, read_haps, cfg.sv_min_size, cfg.min_support_read,
+            use_device=cfg.decide_on_device(n_calls),
+            phase_bnd=cfg.phase_bnd, decision_model=cfg.decision_model,
+            device=cfg.torch_device())
     write_phased_sv_header(variants, artifact, cfg.include_all_ctgs)
     append_phased_sv_records(phased, artifact)
     get_logger().info("phased %d SV calls -> %s", len(phased), artifact)
@@ -807,6 +827,23 @@ STAGES = (
     ("SNP PHASING", stage_snp_phasing),
     ("SV PHASING", stage_sv_phasing),
 )
+# metrics.json's "stages": each stage span's seconds (utils.spans)
+STAGE_KEYS = ("ingest",) + tuple(stage_key(name) for name, _ in STAGES)
+
+
+def _stage_seconds(snap: dict) -> dict[str, float]:
+    return {k: round(snap["spans"].get(k, {}).get("s", 0.0), 4)
+            for k in STAGE_KEYS}
+
+
+def _native_stats(block: dict, backend: str) -> None:
+    """Put the native decode's cost split into an ingest block."""
+    if backend == "native":
+        from duet_tpu_torch.io.native_ingest import decode_stats
+
+        native = decode_stats()
+        if native is not None:
+            block["native"] = native
 
 
 def _device_info(dev: torch.device) -> dict:
@@ -850,8 +887,7 @@ def run_pipeline_streaming(cfg: PipelineConfig) -> str:
     setup_logging(cfg.output)
     log = get_logger()
     t0 = time.time()
-    dispatch.reset()
-    devcost.reset()
+    spans.reset()
 
     st = PipelineState()
     st.mesh = _resolve_mesh(cfg)
@@ -873,15 +909,12 @@ def run_pipeline_streaming(cfg: PipelineConfig) -> str:
     bnd_evidence: dict = {}
     lengths: dict[str, int] = {}
     n_reads = 0
-    # per-stage seconds summed over the contig loop, and the RSS high-water
-    # mark right after each stage (ru_maxrss is monotone: the stage where a
+    # each stage is a span opened once a contig; the RSS high-water mark
+    # right after each stage (ru_maxrss is monotone: the stage where a
     # value first jumps is where the peak formed)
-    stage_s = {"ingest": 0.0, "snp_calling": 0.0, "sv_calling": 0.0,
-               "snp_phasing": 0.0}
-    stage_rss = dict.fromkeys(stage_s, 0.0)
+    stage_rss = dict.fromkeys(STAGE_KEYS, 0.0)
 
-    def _mark(stage: str, t_start: float) -> None:
-        stage_s[stage] += time.perf_counter() - t_start
+    def _mark(stage: str) -> None:
         stage_rss[stage] = max(stage_rss[stage], _peak_rss_mb())
 
     card = _start_card(cfg)
@@ -903,12 +936,17 @@ def run_pipeline_streaming(cfg: PipelineConfig) -> str:
     use_device = cfg.use_device_kernel if st.mesh is not None \
         else cfg.stages_on_device()
     with StageTimer("STREAMING CONTIG PASS"):
-        t_iter = time.perf_counter()
-        for cr, contig_lengths in stream:
-            _mark("ingest", t_iter)  # generator time = decode time
+        contigs = iter(stream)
+        while True:
+            with span("ingest"):  # generator time = decode time
+                item = next(contigs, None)
+            _mark("ingest")
+            if item is None:
+                break
+            cr, contig_lengths = item
+            del item
             if cr.contig not in aliases:
                 del cr
-                t_iter = time.perf_counter()
                 continue
             if cr.contig in snps_all:
                 # a repeated contig means the BAM is not coordinate-sorted;
@@ -924,77 +962,73 @@ def run_pipeline_streaming(cfg: PipelineConfig) -> str:
             fa_name = aliases[cr.contig]
             if fa_name not in st.ref.index:
                 fa_name = cr.contig
-            t = time.perf_counter()
-            codes = st.ref.fetch_codes(fa_name)
-            _mark("ingest", t)  # reference load is ingest, not SNP calling
-            t = time.perf_counter()
-            snp_cfg = cfg.snp_cfg(len(cr.seq), stream=True)
-            if st.mesh is not None and mesh_pileup_ok(snp_cfg):
-                from duet_tpu_torch.parallel.shard_pileup import (
-                    call_snps_sharded,
-                )
+            with span("ingest"):  # reference load is ingest, not SNP calling
+                codes = st.ref.fetch_codes(fa_name)
+            _mark("ingest")
+            with span("snp_calling"):
+                snp_cfg = cfg.snp_cfg(len(cr.seq), stream=True)
+                if st.mesh is not None and mesh_pileup_ok(snp_cfg):
+                    from duet_tpu_torch.parallel.shard_pileup import (
+                        call_snps_sharded,
+                    )
 
-                snps = call_snps_sharded(st.mesh, cr.contig, cr, codes,
-                                         snp_cfg)
-                site_obs = _at_site_obs(cr, snp_cfg, snps.pos)
-            else:
-                snps, site_obs = call_contig_snps(cr.contig, cr, codes,
-                                                  snp_cfg, dev,
-                                                  cfg.nn_device())
-            snps_all[cr.contig] = snps
-            _mark("snp_calling", t)
+                    snps = call_snps_sharded(st.mesh, cr.contig, cr, codes,
+                                             snp_cfg)
+                    site_obs = _at_site_obs(cr, snp_cfg, snps.pos)
+                else:
+                    snps, site_obs = call_contig_snps(cr.contig, cr, codes,
+                                                      snp_cfg, dev,
+                                                      cfg.nn_device())
+                snps_all[cr.contig] = snps
+            _mark("snp_calling")
             # cross-contig breakend evidence survives the contig's release
-            t = time.perf_counter()
-            calls_all[cr.contig], bnd_evidence[cr.contig] = \
-                call_contig_with_evidence(cr, cfg.sv_cfg(), device=dev,
-                                          mesh=st.mesh)
-            st.sv_calls[cr.contig] = calls_all[cr.contig]
-            _mark("sv_calling", t)
-            t = time.perf_counter()
-            result = phase_contig(
-                cr, snps, cfg.snp_cfg(), use_device=use_device, obs=site_obs,
-                min_junction_evidence=cfg.min_junction_evidence, mesh=st.mesh,
-                device_min_nnz=cfg.phasing_device_min_nnz(),
-                adaptive_junction_split=cfg.adaptive_junction_split,
-                protect_intervals=_sv_protect_intervals(cfg, st, cr.contig,
-                                                        cr=cr),
-                device=dev, mode=cfg.haplotag_mode())
-            st.read_haps[cr.contig] = read_hap_map(cr, result)
-            write_phased_snp_vcf(
-                os.path.join(ph_dir, f"phased_{cr.contig}.vcf.gz"),
-                cr.contig, snps, result)
-            _write_haplotag_table(
-                os.path.join(ph_dir, f"{cr.contig}.haplotags.tsv"),
-                st.read_haps[cr.contig])
-            _mark("snp_phasing", t)
+            with span("sv_calling"), span("sv_calling.contigs"):
+                calls_all[cr.contig], bnd_evidence[cr.contig] = \
+                    call_contig_with_evidence(cr, cfg.sv_cfg(), device=dev,
+                                              mesh=st.mesh)
+                st.sv_calls[cr.contig] = calls_all[cr.contig]
+            _mark("sv_calling")
+            with span("snp_phasing"):
+                result = phase_contig(
+                    cr, snps, cfg.snp_cfg(), use_device=use_device,
+                    obs=site_obs,
+                    min_junction_evidence=cfg.min_junction_evidence,
+                    mesh=st.mesh,
+                    device_min_nnz=cfg.phasing_device_min_nnz(),
+                    adaptive_junction_split=cfg.adaptive_junction_split,
+                    protect_intervals=_sv_protect_intervals(cfg, st,
+                                                            cr.contig, cr=cr),
+                    device=dev, mode=cfg.haplotag_mode())
+                st.read_haps[cr.contig] = read_hap_map(cr, result)
+                write_phased_snp_vcf(
+                    os.path.join(ph_dir, f"phased_{cr.contig}.vcf.gz"),
+                    cr.contig, snps, result)
+                _write_haplotag_table(
+                    os.path.join(ph_dir, f"{cr.contig}.haplotags.tsv"),
+                    st.read_haps[cr.contig])
+            _mark("snp_phasing")
             log.info("[STREAM] %s: %d reads, %d SNPs, %d SV candidates, "
                      "%d blocks", cr.contig, cr.n, len(snps.pos),
                      len(calls_all[cr.contig]), len(result.block_ps))
             st.ref.drop_cache(fa_name)
             # drop this contig before the next one decodes beside it
             del cr, codes, site_obs, result
-            t_iter = time.perf_counter()
     write_pileup_vcf(os.path.join(snp_dir, "pileup.vcf.gz"), snps_all, lengths)
     write_sv_vcf(os.path.join(sv_dir, "variants.vcf"), calls_all, lengths,
                  family=cfg.sv_caller,
                  bnds=call_bnds(bnd_evidence, cfg.sv_cfg()))
     st.snps = snps_all
     with StageTimer("SV PHASING"):
-        t = time.perf_counter()
         stage_sv_phasing(cfg, st)
-        stage_s["sv_phasing"] = time.perf_counter() - t
-        stage_rss["sv_phasing"] = _peak_rss_mb()
+    _mark("sv_phasing")
     if card is not None:
         card.result()
     total = round(time.time() - t0, 4)
     log.info("ALL STAGES COMPLETED IN %ss (streamed %d reads)", total, n_reads)
     snap = dispatch.snapshot()
+    traced = spans.snapshot()
     ingest_block: dict = {"backend": stream_backend}
-    if stream_backend == "native":
-        from duet_tpu_torch.io import native_ingest as _ni
-
-        if _ni.LAST_DECODE_STATS is not None:
-            ingest_block["native"] = _ni.LAST_DECODE_STATS
+    _native_stats(ingest_block, stream_backend)
     # auto's gates, as the batch run records them
     gates = {"device_size_gates": cfg.device_size_gates()} \
         if cfg.device_stages == "auto" else {}
@@ -1004,15 +1038,12 @@ def run_pipeline_streaming(cfg: PipelineConfig) -> str:
             **gates,
             "ingest_backend": stream_backend,
             "ingest": ingest_block,
-            # the JAX package's link-probe evidence; the port runs no probe
-            "h2d_probe_mb_s": None,
-            "h2d_worst_put_s": None,
             "backends": {s: dispatch.backend_label(s, snap)
                          for s in dispatch.STAGES},
             "device_dispatch": snap,
             "device_cost": devcost.snapshot(),
             "device": _device_info(dev),
-            "stages": {k: round(v, 4) for k, v in stage_s.items()},
+            "stages": _stage_seconds(traced),
             "stage_peak_rss_mb": {k: round(v, 1)
                                   for k, v in stage_rss.items()},
             "peak_rss_mb": _peak_rss_mb(),
@@ -1025,6 +1056,7 @@ def run_pipeline_streaming(cfg: PipelineConfig) -> str:
             },
             "total_s": total,
             "reads_per_s": round(n_reads / max(total, 1e-9), 1),
+            **spans.rounded(traced),
         }, f, indent=2)
     return os.path.join(cfg.output, "phased_sv.vcf")
 
@@ -1078,16 +1110,14 @@ def run_pipeline(cfg: PipelineConfig) -> str:
         log.info("multi-process run: process %d of %d", pid, nproc)
 
     t0 = time.time()
-    dispatch.reset()
-    devcost.reset()
+    spans.reset()
     st = PipelineState()
     st.mesh = _resolve_mesh(cfg)
     card = _start_card(cfg)
     metrics: dict = {"stages": {}, "counts": {}}
-    with StageTimer("INGEST"):
-        t = time.time()
-        st.ref = FastaFile(cfg.reference)
-        fasta_s = time.time() - t
+    with StageTimer("INGEST") as ingest:
+        with span("ingest.fasta_index") as fasta:
+            st.ref = FastaFile(cfg.reference)
         owned = None
         if nproc > 1:
             from duet_tpu_torch.io.bam import BamReader
@@ -1097,34 +1127,24 @@ def run_pipeline(cfg: PipelineConfig) -> str:
             work = _work_contigs(cfg, bam_names)
             owned = set(_owned_contigs(work, pid, nproc))
             log.info("owned contigs: %s", sorted(owned))
-        t_bam = time.time()
-        st.store, ingest_backend = _ingest(cfg, only_contigs=owned)
-        bam_s = time.time() - t_bam
+        with span("ingest.bam_decode") as bam:
+            st.store, ingest_backend = _ingest(cfg, only_contigs=owned)
         n_reads = sum(c.n for c in st.store.contigs.values())
-        metrics["stages"]["ingest"] = round(time.time() - t, 4)
         metrics["counts"]["reads"] = n_reads
         metrics["counts"]["contigs"] = len(st.store.contigs)
         metrics["ingest"] = {
             "backend": ingest_backend,
-            "fasta_index_s": round(fasta_s, 4),
-            "bam_decode_s": round(bam_s, 4),
-            "bam_decode_reads_per_s": round(n_reads / max(bam_s, 1e-9), 1),
+            "fasta_index_s": round(fasta.s, 4),
+            "bam_decode_s": round(bam.s, 4),
+            "bam_decode_reads_per_s": round(n_reads / max(bam.s, 1e-9), 1),
         }
-        if ingest_backend == "native":
-            from duet_tpu_torch.io import native_ingest as _ni
-
-            if _ni.LAST_DECODE_STATS is not None:
-                metrics["ingest"]["native"] = _ni.LAST_DECODE_STATS
-        metrics["ingest_reads_per_s"] = round(
-            n_reads / max(time.time() - t, 1e-9), 1)
+        _native_stats(metrics["ingest"], ingest_backend)
         log.info("ingested %d reads over %d contigs", n_reads,
                  len(st.store.contigs))
+    metrics["ingest_reads_per_s"] = round(n_reads / max(ingest.s, 1e-9), 1)
     for name, fn in STAGES:
         with StageTimer(name):
-            t = time.time()
             fn(cfg, st)
-            metrics["stages"][name.lower().replace(" ", "_")] = \
-                round(time.time() - t, 4)
     # labels reflect what actually ran (invocation counts), not the flags
     snap = dispatch.snapshot()
     metrics["backends"] = {s: dispatch.backend_label(s, snap)
@@ -1142,8 +1162,11 @@ def run_pipeline(cfg: PipelineConfig) -> str:
         len(m) for m in st.read_haps.values())
     if card is not None:
         card.result()
+    traced = spans.snapshot()
+    metrics["stages"] = _stage_seconds(traced)
     metrics["total_s"] = round(time.time() - t0, 4)
     metrics["peak_rss_mb"] = _peak_rss_mb()
+    metrics.update(spans.rounded(traced))
     metrics_name = "metrics.json" if pid == 0 else f"metrics.p{pid}.json"
     with open(os.path.join(cfg.output, metrics_name), "w") as f:
         json.dump(metrics, f, indent=2)

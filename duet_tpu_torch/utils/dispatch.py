@@ -12,39 +12,35 @@ Stages: snp_pileup, sv_cluster, phase_refine, haplotag, sv_decide.
 Backends: host (numpy or native C++), device (single-device jit kernel),
 mesh (sharded kernel with collectives), nn (neural caller, jax-managed).
 
-Thread-safe: stage fan-out runs contigs on a thread pool.
+Each event is a counter of ``utils.spans``, ``dispatch.<stage>.<backend>``;
+thread-safe (stage fan-out runs contigs on a thread pool).
 """
 
 from __future__ import annotations
 
-import threading
-from collections import Counter
+from duet_tpu_torch.utils import spans
 
-_lock = threading.Lock()
-_counts: Counter = Counter()  # (stage, backend) -> invocation count
+_PREFIX = "dispatch."
 
 STAGES = ("snp_pileup", "sv_cluster", "phase_refine", "haplotag", "sv_decide")
 
 
 def record(stage: str, backend: str, n: int = 1) -> None:
     """Count `n` kernel/path invocations of `backend` for `stage`."""
-    with _lock:
-        _counts[(stage, backend)] += n
+    spans.count(f"{_PREFIX}{stage}.{backend}", n)
 
 
 def reset() -> None:
-    """Start a fresh accounting window (one per pipeline run — bench runs
-    several pipelines in one process)."""
-    with _lock:
-        _counts.clear()
+    """Start a fresh accounting window (the pipeline resets every counter
+    at once; bench runs several pipelines in one process)."""
+    spans.reset(_PREFIX)
 
 
 def snapshot() -> dict[str, dict[str, int]]:
     """stage -> {backend: invocation count}, for machine consumption."""
-    with _lock:
-        items = list(_counts.items())
     out: dict[str, dict[str, int]] = {}
-    for (stage, backend), n in items:
+    for name, n in spans.snapshot(_PREFIX)["counters"].items():
+        stage, backend = name[len(_PREFIX):].split(".")
         out.setdefault(stage, {})[backend] = n
     return out
 

@@ -8,8 +8,9 @@ handlers, '%H:%M:%S [LEVEL] message' format, stage banners framed by
 from __future__ import annotations
 
 import logging
-import time
 from contextlib import contextmanager
+
+from duet_tpu_torch.utils.spans import span
 
 _BANNER = "*" * 25
 _LOG_NAME = "duet_tpu"
@@ -43,12 +44,19 @@ def stage_banner(message: str) -> None:
     get_logger().info(f"{_BANNER} {message} {_BANNER}")
 
 
+def stage_key(stage: str) -> str:
+    """``"SNP CALLING"`` -> ``"snp_calling"``: the stage's span name."""
+    return stage.lower().replace(" ", "_")
+
+
 @contextmanager
 def StageTimer(stage: str):
     """Logs '<STAGE> STARTED' / '<STAGE> COMPLETED IN <s>s' banners around a
     stage, mirroring the reference's per-stage instrumentation
-    (e.g. snp_calling.py:9,19)."""
+    (e.g. snp_calling.py:9,19); the stage is the span ``stage_key(stage)``
+    (``utils.spans``), which the block gets and whose seconds the banner
+    gives."""
     stage_banner(f"{stage} STARTED")
-    t0 = time.time()
-    yield
-    stage_banner(f"{stage} COMPLETED IN {round(time.time() - t0, 3)}s")
+    with span(stage_key(stage)) as s:
+        yield s
+    stage_banner(f"{stage} COMPLETED IN {round(s.s, 3)}s")

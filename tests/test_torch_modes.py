@@ -131,7 +131,9 @@ def test_stream_matches_duet_tpu_and_batch(request, tmp_path, mode, dataset):
 
 
 def test_stream_metrics_schema(sim_dataset, tmp_path):
-    """duet_tpu's streaming metrics.json keys plus the port's "device"."""
+    """duet_tpu's streaming metrics.json keys plus the port's "device" and
+    its span registry, less the JAX package's link-probe keys (the port
+    runs no probe)."""
     data = sim_dataset[0]
     jax_stream(JaxConfig(output=str(tmp_path / "jax"), device_stages="on",
                          **_paths(data)))
@@ -142,9 +144,11 @@ def test_stream_metrics_schema(sim_dataset, tmp_path):
         want = json.load(f)
     with open(tmp_path / "torch" / "metrics.json") as f:
         got = json.load(f)
-    assert set(got) == set(want) | {"device"}
+    probe = {"h2d_probe_mb_s", "h2d_worst_put_s"}
+    assert probe <= set(want)
+    assert set(got) == (set(want) - probe) | {"device", "spans", "counters"}
     assert got["mode"] == "streaming"
-    assert got["h2d_probe_mb_s"] is None and got["h2d_worst_put_s"] is None
+    assert not probe & set(got)
     assert got["device"] == {"type": "cpu", "name": None}
     assert got["counts"] == want["counts"]
     assert set(got["stages"]) == set(want["stages"])
@@ -191,6 +195,7 @@ def test_stream_reader_holds_no_contig_it_yielded(two_contigs, monkeypatch):
 
     from duet_tpu_torch.io import native_ingest
     from duet_tpu_torch.io.bgzf import bgzf_decompress_file
+    from duet_tpu_torch.utils import spans
 
     try:
         lib = native_ingest.get_lib()
@@ -218,6 +223,7 @@ def test_stream_reader_holds_no_contig_it_yielded(two_contigs, monkeypatch):
         return fetch(lib_, h, name)
 
     monkeypatch.setattr(native_ingest, "_fetch_contig", spy)
+    spans.reset()
     held = {}
     for cr, _ in native_ingest.stream_read_store_native(bam, n_threads=2):
         held[cr.contig] = lib.duet_bam_held_bytes(
@@ -226,7 +232,7 @@ def test_stream_reader_holds_no_contig_it_yielded(two_contigs, monkeypatch):
     # the window rounds up to whole pages
     assert 0 < held["chr1"] < len(data) - ends[0] + 4096
     assert held["chr2"] == 0
-    stats = native_ingest.LAST_DECODE_STATS
+    stats = native_ingest.decode_stats()
     assert held["chr1"] < stats["bytes_inflated"] / stats["inflate_batches"]
 
 

@@ -59,7 +59,7 @@ def test_artifacts_match_jax_pipeline(sim_dataset, tmp_path, mode, backend):
         metrics = json.load(f)
     with open(os.path.join(want, "metrics.json")) as f:
         ref_keys = set(json.load(f))
-    assert set(metrics) == ref_keys | {"device"}
+    assert set(metrics) == ref_keys | {"device", "spans", "counters"}
     assert metrics["backends"] == dict.fromkeys(STAGES, backend)
     assert metrics["device"] == {"type": "cpu", "name": None}
     for stage, row in metrics["device_cost"].items():
@@ -146,8 +146,9 @@ def test_auto_gates_stay_on_host_for_cpu_device(sim_dataset, tmp_path):
         "pileup_min_bases": None, "pileup_contig_min_bases": None,
         "sv_cluster_min_signatures": 64_000,
         "phasing_min_nnz": 49_995, "decide_min_calls": None,
-        "haplotag_mode": "sparse",
-        "h2d_probe_mb_s": None, "h2d_worst_put_s": None}
+        "haplotag_mode": "sparse"}
+    assert not {"h2d_probe_mb_s", "h2d_worst_put_s"} & \
+        set(metrics["device_size_gates"])
     want = str(tmp_path / "jax")
     jax_run(JaxConfig(bam=os.path.join(data, "reads.bam"),
                       reference=os.path.join(data, "ref.fa"), output=want))

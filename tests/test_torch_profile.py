@@ -1,7 +1,7 @@
 """`duet-tpu-torch --profile` on the CPU: the run is recorded with
 torch.profiler into OUTPUT/profile/trace.json (a Chrome trace with
-`traceEvents`), and its artifacts are byte-identical to the same run
-without the flag."""
+`traceEvents`) beside idle_by_span.json, and its artifacts are
+byte-identical to the same run without the flag."""
 
 import json
 import os
@@ -20,7 +20,8 @@ def test_profile_writes_trace_and_same_artifacts(sim_dataset, tmp_path):
     assert cli_main([*args, plain, *common]) == 0
     assert cli_main([*args, profiled, *common, "--profile"]) == 0
     assert artifact_tree(profiled) == artifact_tree(plain)
-    assert os.listdir(os.path.join(profiled, "profile")) == ["trace.json"]
+    assert sorted(os.listdir(os.path.join(profiled, "profile"))) == \
+        ["idle_by_span.json", "trace.json"]
     with open(os.path.join(profiled, "profile", "trace.json")) as f:
         events = json.load(f)["traceEvents"]
     names = {e.get("name", "") for e in events}
@@ -30,8 +31,9 @@ def test_profile_writes_trace_and_same_artifacts(sim_dataset, tmp_path):
 
 
 def test_profile_trace_per_process(sim_dataset, tmp_path):
-    """Two emulated processes under --profile: one trace each, named as
-    the logs are (trace.json on process 0, trace.p1.json on process 1)."""
+    """Two emulated processes under --profile: one trace and one idle
+    split each, named as the logs are (trace.json on process 0,
+    trace.p1.json on process 1)."""
     data = sim_dataset[0]
     args = [os.path.join(data, "reads.bam"), os.path.join(data, "ref.fa")]
     common = ["--device", "cpu", "--device-stages", "on", "-t", "2"]
@@ -41,7 +43,8 @@ def test_profile_trace_per_process(sim_dataset, tmp_path):
         assert cli_main([*args, shared, *common, "--profile",
                          "--num-processes", "2", "--process-id", pid]) == 0
     assert sorted(os.listdir(os.path.join(shared, "profile"))) == \
-        ["trace.json", "trace.p1.json"]
+        ["idle_by_span.json", "idle_by_span.p1.json", "trace.json",
+         "trace.p1.json"]
     assert artifact_tree(shared) == artifact_tree(single)
 
 
