@@ -35,6 +35,12 @@ together).  Phases, each printing one line:
                 the first kernel pair's time, with the count's tile size,
                 its ops off the tiles (second_path_ops; none here) and
                 each kernel's device time by pass;
+  [snp features]  the neural caller's candidate and feature kernels
+                (csrc/snp_features.cu: cand_count, cand_compact,
+                cand_features) against their torch twins on
+                SNP_FEATURE_EDGE_CASES and at the q10-10x cell's shape,
+                where they are timed beside the twins, the counts' upload
+                and their bound;
   [pipeline on] the batch pipeline through the port's CLI with
                 --device-stages on (the device pileup on its kernels, the
                 dense scorer and its hand kernel), every stage on the
@@ -470,6 +476,80 @@ def pileup_edge_inputs(case: str, scale: int = 1):
     return ops4, payload, total, L, max_sites
 
 
+# the neural caller's candidate and feature passes (csrc/snp_features.cu):
+# argmax ties among the non-ref alleles; reference codes of 4 and above;
+# candidates within the window's half-width of either end, and images
+# shorter than a window; zero-depth rows inside the windows; depths
+# around and far above 100; no candidate at all; the numpy counting's
+# int64 counts
+SNP_FEATURE_EDGE_CASES = ("ties", "ref_n", "edges", "short", "zero_depth",
+                          "deep", "none", "int64")
+# the q10-10x.auto cell's contig: 6 Mb at 10x with ~10% read error
+SNP_CELL_POSITIONS = 6_000_000
+
+
+def snp_feature_counts(L: int, seed: int, coverage: float = 10.0,
+                       error: float = 0.10, dtype=np.int32):
+    """((L, 4) counts, (L,) uint8 reference codes) of reads at `coverage`
+    with `error` spread over the three other bases: a het SNP at 0.0013 of
+    the positions (half the reads carry the alt), a reference N at 0.001."""
+    rng = np.random.default_rng(seed)
+    ref = rng.integers(0, 4, L).astype(np.uint8)
+    depth = rng.poisson(coverage, L)
+    snp = rng.random(L) < 0.0013
+    n_alt = np.where(snp, rng.binomial(depth, 0.5), 0)
+    n_err = rng.binomial(depth - n_alt, error)
+    e1 = rng.binomial(n_err, 1 / 3)
+    e2 = rng.binomial(n_err - e1, 0.5)
+    counts = np.zeros((L, 4), dtype)
+    rows = np.arange(L)
+    r = ref.astype(np.int64)
+    counts[rows, r] = depth - n_alt - n_err
+    for k, e in ((1, e1), (2, e2), (3, n_err - e1 - e2)):
+        counts[rows, (r + k) % 4] += e
+    counts[rows, (r + rng.integers(1, 4, L)) % 4] += n_alt
+    ref[rng.random(L) < 0.001] = 4
+    return counts, ref
+
+
+def snp_feature_edge_inputs(case: str):
+    """((L, 4) counts, (L,) uint8 reference codes) of one of
+    SNP_FEATURE_EDGE_CASES, from a seed made of the case."""
+    rng = np.random.default_rng([11, SNP_FEATURE_EDGE_CASES.index(case)])
+    L = 3_000
+    if case == "int64":
+        return snp_feature_counts(20_000, 5, dtype=np.int64)
+    counts = rng.integers(0, 5, (L, 4)).astype(np.int32)  # ties throughout
+    ref = rng.integers(0, 4, L).astype(np.uint8)
+    if case == "ref_n":
+        n_rows = rng.random(L) < 0.3
+        ref[n_rows] = rng.choice(np.array([4, 5, 7, 255], np.uint8),
+                                 int(n_rows.sum()))
+    elif case == "edges":
+        counts[:] = 0
+        ref[:] = 0
+        for p in (0, 1, 2, 3, 4, 5, L - 6, L - 5, L - 4, L - 3, L - 2, L - 1):
+            counts[p] = (1, 3, 2, 0)
+        counts[[7, L - 8]] = (40, 0, 0, 0)
+    elif case == "short":
+        counts, ref = counts[:5].copy(), ref[:5].copy()
+        counts[:, 1] += 3
+        ref[:] = 0
+    elif case == "zero_depth":
+        counts[rng.random(L) < 0.4] = 0
+    elif case == "deep":
+        counts = rng.integers(0, 400, (L, 4)).astype(np.int32)
+        counts[::7] = (97, 1, 1, 1)
+        counts[1::7] = (0, 99, 1, 1)
+        counts[2::7] = (60, 40, 1, 0)
+        counts[3::7] = rng.integers(2_000, 20_000, (len(counts[3::7]), 4))
+    elif case == "none":
+        counts[:] = 0
+        counts[np.arange(L), ref] = rng.integers(0, 50, L)
+        counts[::3, (ref[::3] + 1) % 4] = 1
+    return counts, ref
+
+
 def _cuda(A, W, phase0, onehot):
     """Card tensors: alleles int8, weights float32 and bf16, phase, onehot."""
     import torch
@@ -496,6 +576,9 @@ PILEUP_KERNELS = ("pileup_count", "pileup_call")
 # the launches of csrc/pileup.cu's two entries, by kernel name
 PILEUP_PASSES = (r"(op_block_sums|scan_kernel|op_tiles|op_scatter|"
                  r"tile_count|second_path|call_bits|compact_sites)")
+SNP_FEATURE_KERNELS = ("cand_count", "cand_compact", "cand_features")
+# the launches of csrc/snp_features.cu's three entries
+SNP_FEATURE_PASSES = r"(cand_count|scan_kernel|cand_compact|cand_features)"
 
 
 def _require_launches(counts: dict, names, path: str) -> None:
@@ -516,9 +599,15 @@ def _kernel_name(mangled: str) -> str:
     if v:
         return f"sweep one-pass<{v.group(1)} threads, {v.group(2)} rows, " \
                f"{v.group(3)} stages>"
-    v = re.search(PILEUP_PASSES, mangled)
+    v = re.search(r"(cand_count|cand_compact|cand_features)I([ix])E",
+                  mangled)
     if v:
-        return f"pileup {v.group(1)}"
+        width = "int64" if v.group(2) == "x" else "int32"
+        return f"snp_features {v.group(1)}<{width} counts>"
+    v = re.search(PILEUP_PASSES, mangled)
+    if v:   # scan_kernel: pileup.cu's and snp_features.cu's each
+        return v.group(1) if v.group(1) == "scan_kernel" else \
+            f"pileup {v.group(1)}"
     return "sweep reread" if "sweep_reread" in mangled else mangled
 
 
@@ -558,7 +647,7 @@ def phase_card(report: dict) -> None:
     t = time.perf_counter()
     haplotag_kernel.build()
     wall = time.perf_counter() - t
-    libs = ("haplotag_score", "haplotag_sweep", "pileup")
+    libs = ("haplotag_score", "haplotag_sweep", "pileup", "snp_features")
     builds = ", ".join(
         f"{n} {cuda_build.BUILD_INFO[n]['seconds']} s (fresh build: "
         f"{cuda_build.BUILD_INFO[n]['built']})" for n in libs)
@@ -937,9 +1026,10 @@ def phase_ingest(report: dict, data: str) -> None:
 FIRST_PILEUP_MS = {"pileup_count": 3.3977, "pileup_call": 0.2415}
 
 
-def _pass_split(fn, reps: int = 5) -> dict:
+def _pass_split(fn, reps: int = 5, passes: str = PILEUP_PASSES) -> dict:
     """Device microseconds a call of `fn` spends in each kernel it
-    launches, by pass name (torch.profiler over `reps` calls)."""
+    launches, by pass name (the group of `passes`; torch.profiler over
+    `reps` calls)."""
     import re
 
     import torch
@@ -954,11 +1044,11 @@ def _pass_split(fn, reps: int = 5) -> dict:
     split: dict = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0)
-        v = re.search(PILEUP_PASSES, e.key)
+        v = re.search(passes, e.key)
         if us > 0 and v:
             split[v.group(1)] = split.get(v.group(1), 0) + us / reps
     if not split:
-        raise AssertionError("torch.profiler saw no pileup kernel")
+        raise AssertionError(f"torch.profiler saw no kernel of {passes}")
     return {k: round(v, 1) for k, v in split.items()}
 
 
@@ -1081,21 +1171,125 @@ def phase_pileup_kernel(report: dict, data: str) -> None:
           flush=True)
 
 
+def _snp_features_on(counts, ref, batch: int):
+    """The kernel route's candidates and the features of its `batch`-row
+    chunks, on the tensors' device."""
+    from duet_tpu_torch.ops import snp_features as sf
+
+    cand = sf.candidates(counts, ref)
+    pos, alt = cand[0], cand[1]
+    return cand, [sf.features(counts, ref, pos[s:s + batch],
+                              alt[s:s + batch])
+                  for s in range(0, len(pos), batch)]
+
+
+def _snp_features_plain(counts, ref, batch: int):
+    """The same through the torch twins, on the tensors' device."""
+    from duet_tpu_torch.ops import snp_features as sf
+
+    cand = sf.candidates_plain(counts, ref)
+    pos, alt = cand[0], cand[1]
+    return cand, [sf.features_plain(counts, ref, pos[s:s + batch],
+                                    alt[s:s + batch])
+                  for s in range(0, len(pos), batch)]
+
+
+def check_snp_features(counts: np.ndarray, ref: np.ndarray, batch: int,
+                       what: str) -> int:
+    """The kernels on the card against the twins on the CPU, exactly: the
+    four candidate fields, then every chunk's features as bytes; n."""
+    import torch
+
+    dev = torch.device("cuda")
+    got_c, got_f = _snp_features_on(torch.from_numpy(counts).to(dev),
+                                    torch.from_numpy(ref).to(dev), batch)
+    want_c, want_f = _snp_features_plain(torch.from_numpy(counts),
+                                         torch.from_numpy(ref), batch)
+    torch.cuda.synchronize()
+    _require_equal([g.cpu() for g in got_c], want_c,
+                   ["pos", "alt_code", "alt_count", "depth"], what)
+    _require_equal([g.cpu().view(torch.int32) for g in got_f],
+                   [w.view(torch.int32) for w in want_f],
+                   [f"features[{k * batch}:]" for k in range(len(want_f))],
+                   what)
+    return len(want_c[0])
+
+
+def phase_snp_features(report: dict) -> None:
+    """The neural caller's candidate and feature kernels
+    (csrc/snp_features.cu) against their torch twins, exactly, on
+    SNP_FEATURE_EDGE_CASES in chunks of 7 rows, then at the q10-10x cell's
+    shape (SNP_CELL_POSITIONS at 10x, 10% error) in nn_call_snps' chunks
+    of 65,536: the kernels' time beside the twins' on the card, the
+    counts' upload and the bound, and each pass's device time."""
+    import torch
+
+    from duet_tpu_torch.ops import snp_features as sf
+
+    t0 = time.perf_counter()
+    edges = []
+    for case in SNP_FEATURE_EDGE_CASES:
+        n = check_snp_features(*snp_feature_edge_inputs(case), 7, case)
+        edges.append(f"{case} ({n} candidates)")
+    batch = 65536
+    counts, ref = snp_feature_counts(SNP_CELL_POSITIONS, 5)
+    n = check_snp_features(counts, ref, batch, "the cell's shape")
+    dev = torch.device("cuda")
+    upload_ms = _median_ms(lambda: torch.from_numpy(counts).to(dev), reps=5)
+    c_d = torch.from_numpy(counts).to(dev)
+    r_d = torch.from_numpy(ref).to(dev)
+    ms, plain_ms = _turns(lambda: _snp_features_on(c_d, r_d, batch),
+                          lambda: _snp_features_plain(c_d, r_d, batch),
+                          rounds=2, reps=5)
+    pos, alt = sf.candidates(c_d, r_d)[:2]
+    cand_ms = _median_ms(lambda: sf.candidates(c_d, r_d), reps=10)
+    feat_ms = _median_ms(lambda: [sf.features(c_d, r_d, pos[s:s + batch],
+                                              alt[s:s + batch])
+                                  for s in range(0, n, batch)], reps=10)
+    passes = _pass_split(lambda: _snp_features_on(c_d, r_d, batch),
+                         passes=SNP_FEATURE_PASSES)
+    L = SNP_CELL_POSITIONS
+    # each input read once (the int32 counts, the reference codes) and
+    # each output written once (21 bytes of candidate fields and 204 of
+    # features a candidate)
+    report["snp_features"] = {"ms": ms, "plain_ms": plain_ms,
+                              "max_abs_err": 0, "library_ms": None,
+                              **_bound(16 * L + L + (21 + 204) * n, 0,
+                                       "fp32")}
+    r = report["snp_features"]
+    print(f"[snp features] cand_count + cand_compact and cand_features == "
+          f"candidates_plain and features_plain (torch.equal on the four "
+          f"candidate fields and on the features' bytes, chunks of 7) on "
+          f"{', '.join(edges)}; at the q10-10x cell's shape (L = {L}, "
+          f"{n} candidates, {n / L:.1%}, chunks of {batch}): the three "
+          f"passes {ms:.4f} ms (candidates with the readback of n "
+          f"{cand_ms:.4f}, features {feat_ms:.4f}) vs the twins on the "
+          f"card {plain_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}, {r['bound_ms'] / ms:.1%} of it); the counts' "
+          f"pageable upload {upload_ms:.3f} ms "
+          f"({16 * L / upload_ms / 1e6:.2f} GB/s); device us a call by "
+          f"pass (torch.profiler): {json.dumps(passes)}; library: none; in "
+          f"{time.perf_counter() - t0:.1f} s on {report['card']}",
+          flush=True)
+
+
 def _reset_launches() -> None:
     import torch
 
-    from duet_tpu_torch.ops import haplotag_kernel, pileup_kernel
+    from duet_tpu_torch.ops import haplotag_kernel, pileup_kernel, snp_features
 
     torch.cuda.synchronize()
     haplotag_kernel.reset_launches()
     pileup_kernel.reset_launches()
+    snp_features.reset_launches()
 
 
 def _launches() -> dict:
     """Every kernel's launches since the last _reset_launches."""
-    from duet_tpu_torch.ops import haplotag_kernel, pileup_kernel
+    from duet_tpu_torch.ops import haplotag_kernel, pileup_kernel, snp_features
 
-    return {**haplotag_kernel.LAUNCHES, **pileup_kernel.LAUNCHES}
+    return {**haplotag_kernel.LAUNCHES, **pileup_kernel.LAUNCHES,
+            **snp_features.LAUNCHES}
 
 
 def _all_on_device(metrics: dict, path: str) -> None:
@@ -1528,7 +1722,10 @@ def phase_flags(report: dict, data: str, work: str) -> None:
     _reset_launches()
     on = _run_cli(data, os.path.join(work, "flags_on"), "on", *flags)
     counts = _launches()
-    _require_launches(counts, ["haplotag_score"], "--snp-model nn under on")
+    _require_launches(counts, ["haplotag_score", *SNP_FEATURE_KERNELS],
+                      "--snp-model nn under on")
+    report["snp_feature_launches"] = sum(counts[k]
+                                         for k in SNP_FEATURE_KERNELS)
     before = _launches()
     off = _run_cli(data, os.path.join(work, "flags_off"), "off", *flags)
     if _launches() != before:
@@ -1556,7 +1753,9 @@ def phase_flags(report: dict, data: str, work: str) -> None:
     print(f"[flags] {' '.join(flags)}: {n} artifacts byte-identical between "
           f"on and off, BAMs {bams} included; backends on "
           f"{json.dumps(on['backends'])}; haplotag_score launches "
-          f"{counts['haplotag_score']}; snp_phasing s with and without "
+          f"{counts['haplotag_score']}, the SNP feature kernels' "
+          f"{json.dumps({k: counts[k] for k in SNP_FEATURE_KERNELS})}; "
+          f"snp_phasing s with and without "
           f"--haplotag-bam {json.dumps(cost)} (host cores "
           f"{os.cpu_count()}, affinity {len(os.sched_getaffinity(0))}, -t "
           f"{_threads_default()}); total on {on['total_s']} s, stages "
@@ -2282,6 +2481,9 @@ KERNELS = [
      "duet_tpu/ops/pileup.py:124", "pileup_count"),
     ("pileup_call", "duet_tpu_torch/csrc/pileup.cu",
      "duet_tpu/ops/pileup.py:168", "pileup_call"),
+    ("snp_features", "duet_tpu_torch/csrc/snp_features.cu",
+     "none (numpy: duet_tpu/models/nn_snp.py candidate_sites + "
+     "extract_features)", "snp_features"),
 ]
 
 
@@ -2305,6 +2507,7 @@ def main() -> int:
         data = phase_simulate(report, work)
         phase_ingest(report, data)
         phase_pileup_kernel(report, data)
+        phase_snp_features(report)
         phase_pipeline_on(report, data, work)
         phase_pipeline_off(report, data, work)
         phase_pipeline_auto(report, data, work)
@@ -2335,7 +2538,8 @@ def main() -> int:
                 "haplotag_sweep": report["bench_launches"]["haplotag_sweep"],
                 "haplotag_score_shared":
                     report["bench_launches"]["haplotag_score_shared"],
-                **report["pileup_launches"]}
+                **report["pileup_launches"],
+                "snp_features": report["snp_feature_launches"]}
     print(f"[wall] every phase in {time.perf_counter() - t0:.1f} s",
           flush=True)
     print(report["card"])

@@ -40,6 +40,7 @@ from duet_tpu_torch.models.nn_snp_host import (
     load_params,
     save_params,
 )
+from duet_tpu_torch.utils import dispatch, spans
 from duet_tpu_torch.utils.spans import span
 
 
@@ -98,13 +99,24 @@ def nn_call_snps(contig: str, counts: np.ndarray, ref_codes: np.ndarray,
     Mirrors ``duet_tpu.models.nn_snp.nn_call_snps``: candidate sites from
     the candidate gate, features from the extractor, then one forward
     pass per `batch` candidates on `device` (the spans
-    ``snp_calling.features`` and ``snp_calling.network``)."""
+    ``snp_calling.features`` and ``snp_calling.network``).  On a CUDA
+    `device` the candidates and each chunk's features are built there from
+    the uploaded counts (``_nn_call_snps_card``); on the CPU by
+    ``candidate_sites`` and ``extract_features`` in numpy.  Both give the
+    same candidates and feature bytes, so the same classes.  The route is
+    recorded as ``dispatch.snp_features.<kernel|host>``, the candidates as
+    the counter ``snp_calling.candidates``."""
     from duet_tpu_torch.models.snp_caller_host import ContigSnps
 
+    if device.type == "cuda":
+        return _nn_call_snps_card(contig, counts, ref_codes, model, device,
+                                  batch)
+    dispatch.record("snp_features", "host")
     with span("snp_calling.features"):
         pos, alt_code, alt_count, depth = candidate_sites(counts, ref_codes)
         feats = extract_features(counts, ref_codes, pos, alt_code)
     n = len(pos)
+    spans.count("snp_calling.candidates", n)
     cls = np.zeros(0, dtype=np.int64)
     if n:
         require(device)
@@ -125,6 +137,54 @@ def nn_call_snps(contig: str, counts: np.ndarray, ref_codes: np.ndarray,
         is_het=cls[keep] == 1,
         depth=depth[keep].astype(np.int32),
         alt_count=alt_count[keep].astype(np.int32),
+    )
+
+
+def _nn_call_snps_card(contig: str, counts: np.ndarray,
+                       ref_codes: np.ndarray, model: SnpMLP | None,
+                       device: torch.device, batch: int):
+    """``nn_call_snps`` on a card: the counts and reference codes go up
+    once, the candidates are built there (``ops.snp_features.candidates``,
+    the span ``snp_calling.features``), then a chunk at a time its features
+    (``features``) and the forward pass, the classes staying on the card;
+    the called sites (class >= 1) are compacted there and only their
+    fields come back (the span ``snp_calling.network``)."""
+    from duet_tpu_torch.models.snp_caller_host import ContigSnps
+    from duet_tpu_torch.ops import snp_features
+
+    require(device)
+    dispatch.record("snp_features", "kernel")
+    with span("snp_calling.features"):
+        counts_d = torch.from_numpy(np.ascontiguousarray(counts)).to(device)
+        ref_d = torch.from_numpy(np.ascontiguousarray(ref_codes)).to(device)
+        pos, alt_code, alt_count, depth = snp_features.candidates(counts_d,
+                                                                  ref_d)
+    n = len(pos)
+    spans.count("snp_calling.candidates", n)
+    called = np.zeros((5, 0), dtype=np.int64)
+    if n:
+        with span("snp_calling.network"):
+            model = model if model is not None else load_model(device=device)
+            cls = torch.empty(n, dtype=torch.int64, device=device)
+            with torch.no_grad():
+                for s in range(0, n, batch):
+                    x = snp_features.features(counts_d, ref_d,
+                                              pos[s:s + batch],
+                                              alt_code[s:s + batch])
+                    cls[s:s + batch] = model(x).argmax(dim=1)
+            sel = torch.nonzero(cls >= 1).squeeze(1)
+            called = torch.stack([pos[sel], alt_code[sel].long(), depth[sel],
+                                  alt_count[sel].long(), cls[sel]]
+                                 ).cpu().numpy()
+    site, alt, dp, ac, c = called
+    return ContigSnps(
+        contig=contig,
+        pos=site,
+        ref_code=ref_codes[site].astype(np.uint8),
+        alt_code=alt.astype(np.uint8),
+        is_het=c == 1,
+        depth=dp.astype(np.int32),
+        alt_count=ac.astype(np.int32),
     )
 
 

@@ -135,13 +135,15 @@ def sweep_launch_shape(R: int, S: int,
 
 
 def build() -> None:
-    """Build (or load) the port's three kernel libraries (score, sweep and
-    ``ops.pileup_kernel``'s pileup), their nvcc runs in parallel."""
-    from duet_tpu_torch.ops import pileup_kernel
+    """Build (or load) the port's four kernel libraries (score, sweep,
+    ``ops.pileup_kernel``'s pileup and ``ops.snp_features``' candidate and
+    feature passes), their nvcc runs in parallel."""
+    from duet_tpu_torch.ops import pileup_kernel, snp_features
 
-    with ThreadPoolExecutor(3) as ex:
+    with ThreadPoolExecutor(4) as ex:
         for f in [ex.submit(_score_library), ex.submit(_sweep_library),
-                  ex.submit(pileup_kernel.build)]:
+                  ex.submit(pileup_kernel.build),
+                  ex.submit(snp_features.build)]:
             f.result()
 
 

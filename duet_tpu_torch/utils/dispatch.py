@@ -11,6 +11,9 @@ run_duet.log has no such attribution at all — SURVEY.md §5.1).
 Stages: snp_pileup, sv_cluster, phase_refine, haplotag, sv_decide.
 Backends: host (numpy or native C++), device (single-device jit kernel),
 mesh (sharded kernel with collectives), nn (neural caller, jax-managed).
+Beside them, off ``STAGES`` and the labels: ``snp_features``, where the
+neural caller built its candidates and features (kernel: the card's hand
+kernels; host: numpy).
 
 Each event is a counter of ``utils.spans``, ``dispatch.<stage>.<backend>``;
 thread-safe (stage fan-out runs contigs on a thread pool).

@@ -34,7 +34,8 @@ StageTimer``), their children ``<stage>.<step>``, the artifact writers
 ``write.<artifact>`` and the tabix index ``index.tabix``, the device
 phases ``device.<stage>.{h2d,compute,d2h}`` (``utils.devcost``); the
 counters ``dispatch.<stage>.<backend>`` (``utils.dispatch``),
-``device.<stage>.{h2d,d2h}_bytes`` and the native decode's ``ingest.*``.
+``device.<stage>.{h2d,d2h}_bytes``, the native decode's ``ingest.*`` and
+the neural caller's ``snp_calling.candidates``.
 No name begins with ``stage:``, the benchmark's own range prefix.
 """
 

@@ -318,3 +318,69 @@ def test_train_on_card(cuda_device, tmp_path, monkeypatch):
         gpu = nn_snp.load_model(out, cuda_device)(x.to(cuda_device)).cpu()
         cpu = nn_snp.load_model(out)(x)
     assert torch.equal(gpu.argmax(1), cpu.argmax(1))
+
+
+@pytest.mark.parametrize("case", [*chip_smoke.SNP_FEATURE_EDGE_CASES,
+                                  "cell_shape"])
+def test_snp_feature_kernels_match_twins(cuda_device, case):
+    """The candidate and feature kernels on the card against their twins
+    on the CPU: the four candidate fields and the features' bytes, on the
+    edge cases in chunks of 7 and on a counts image shaped like the
+    q10-10x cell (6 M positions at 10x, 10% error) in nn_call_snps'
+    chunks; each kernel launched."""
+    from duet_tpu_torch.ops import snp_features
+
+    if case == "cell_shape":
+        counts, ref = chip_smoke.snp_feature_counts(
+            chip_smoke.SNP_CELL_POSITIONS, 5)
+        batch = 65536
+    else:
+        counts, ref = chip_smoke.snp_feature_edge_inputs(case)
+        batch = 7
+    snp_features.reset_launches()
+    n = chip_smoke.check_snp_features(counts, ref, batch, case)
+    launched = dict(snp_features.LAUNCHES)
+    assert launched["cand_count"] == 1
+    assert launched["cand_compact"] == (1 if n else 0)
+    assert launched["cand_features"] == -(-n // batch)
+    if case == "cell_shape":
+        assert n > len(ref) // 10
+
+
+def test_nn_call_snps_on_card_matches_cpu(cuda_device, tmp_path):
+    """nn_call_snps on the card (candidates and features by the kernels)
+    against the CPU's numpy route on a simulated contig, field for field;
+    the kernels launched and the candidates counted."""
+    from duet_tpu_torch.io.fasta import FastaFile
+    from duet_tpu_torch.io.readstore import load_read_store
+    from duet_tpu_torch.models.nn_snp import nn_call_snps
+    from duet_tpu_torch.models.snp_caller_host import (
+        SnpCallConfig, count_alleles, pileup_observations)
+    from duet_tpu_torch.ops import snp_features
+    from duet_tpu_torch.sim import SimConfig, simulate_dataset
+    from duet_tpu_torch.utils import dispatch, spans
+
+    data = str(tmp_path / "data")
+    simulate_dataset(data, SimConfig(contigs={"chr1": 400_000}, seed=13,
+                                     coverage=10.0))
+    cr = load_read_store(os.path.join(data, "reads.bam")).contigs["chr1"]
+    codes = FastaFile(os.path.join(data, "ref.fa")).fetch_codes("chr1")
+    cfg = SnpCallConfig()
+    obs = pileup_observations(cr, cfg)
+    counts = count_alleles(obs[0], obs[1], obs[2], len(codes),
+                           cfg.min_base_qual)
+    for c in (counts, counts.astype(np.int32)):
+        spans.reset()
+        snp_features.reset_launches()
+        got = nn_call_snps("chr1", c, codes, device=cuda_device, batch=5000)
+        n = spans.snapshot()["counters"]["snp_calling.candidates"]
+        assert dispatch.snapshot()["snp_features"] == {"kernel": 1}
+        assert snp_features.LAUNCHES == {"cand_count": 1, "cand_compact": 1,
+                                         "cand_features": -(-n // 5000)}
+        want = nn_call_snps("chr1", c, codes, batch=5000)
+        assert len(got.pos) > 0 and n > len(got.pos)
+        for f in ("pos", "ref_code", "alt_code", "is_het", "depth",
+                  "alt_count"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                          err_msg=f)
+            assert getattr(got, f).dtype == getattr(want, f).dtype, f
