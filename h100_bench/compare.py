@@ -9,10 +9,25 @@ it for that class: those are read as the gap by which the reference's
 logit of the served class lies below its best (``snp_nn_gap``), and the
 later layers take the program's calls (``reference.pipeline``'s
 ``follow``).
+
+The reference runs with the traffic's flags: its ``RunFlags`` takes every
+key of the traffic's ``pipeline`` that is one of its fields
+(``reference_flags``).  The keys of ``ROUTE_ONLY`` choose where the
+program computes, not what, and stay with the program; a traffic that sets
+any other key is one the reference cannot honour, and ``harness.load_cell``
+refuses its cell (``unhonoured``).
+
+A cell whose traffic runs the pipeline contig by contig (``"entry":
+"stream"``, ``pipeline.run_pipeline_streaming``) is judged against the
+same reference, with the same ``follow``: the streaming run writes the
+batch run's artifacts under the same paths (``run_pipeline_streaming``'s
+docstring; ``tests/test_torch_modes.py``), so what holds the batch run to
+the host route holds it too.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import gzip
 import os
 from collections import Counter
@@ -22,6 +37,22 @@ from h100_bench.reference.stages import FLOAT32, Precision
 
 BASES = "ACGT"
 LAYERS = ("snp_calling", "sv_calling", "snp_phasing", "sv_phasing")
+# the program's outputs do not depend on these (ROADMAP "Reference
+# semantics"; tests/test_torch_flags.py): they pick routes, not results
+ROUTE_ONLY = ("device_stages", "threads", "use_device_kernel")
+FLAGS = tuple(f.name for f in dataclasses.fields(RunFlags))
+
+
+def reference_flags(pipeline: dict) -> RunFlags:
+    """The reference's flags for a traffic's ``pipeline`` dict: every key
+    that is a field of ``RunFlags``, the rest at their defaults."""
+    return RunFlags(**{k: v for k, v in pipeline.items() if k in FLAGS})
+
+
+def unhonoured(pipeline: dict) -> list[str]:
+    """The keys of a traffic's ``pipeline`` dict that the reference cannot
+    honour: neither one of its flags nor a route."""
+    return sorted(set(pipeline) - set(FLAGS) - set(ROUTE_ONLY))
 
 
 def _layer(rel: str) -> str:
@@ -133,24 +164,25 @@ def judge(out: str, ref_dir: str, nn: dict, limits: dict) -> dict:
     return checks
 
 
-def check_sample(out: str, data: str, ref_dir: str, snp_model: str,
+def check_sample(out: str, data: str, ref_dir: str, flags: RunFlags,
                  limits: dict) -> dict:
-    """Run the reference on the cell's input and judge the sample under
-    `out` against it."""
+    """Run the reference on the input under `data` with `flags` (the
+    traffic's, ``reference_flags``), and judge the sample under `out`
+    against it."""
     ref = run_reference(os.path.join(data, "reads.bam"),
-                        os.path.join(data, "ref.fa"), ref_dir,
-                        RunFlags(snp_model=snp_model), FLOAT32,
+                        os.path.join(data, "ref.fa"), ref_dir, flags, FLOAT32,
                         follow=os.path.join(out, "snp_calling",
                                             "pileup.vcf.gz"))
     return judge(out, ref.out_dir, ref.nn, limits)
 
 
-def control_checks(data: str, work: str, snp_model: str, limits: dict,
+def control_checks(data: str, work: str, pipeline: dict, limits: dict,
                    prec: Precision) -> dict:
     """The control: the reference computed in `prec` put in the program's
-    place, judged as a sample is."""
+    place, judged as a sample is, both with the flags of the traffic's
+    `pipeline` dict."""
     bam, fa = os.path.join(data, "reads.bam"), os.path.join(data, "ref.fa")
-    flags = RunFlags(snp_model=snp_model)
+    flags = reference_flags(pipeline)
     ctrl = os.path.join(work, "control")
     run_reference(bam, fa, ctrl, flags, prec)
     ref = run_reference(bam, fa, os.path.join(work, "ref"), flags, FLOAT32,

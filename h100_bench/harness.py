@@ -3,14 +3,20 @@ traced samples, and the check against the plain reference.
 
 A cell of ``BENCHMARK.json`` names a configuration (``configs/<name>.json``:
 the simulator's parameters) and a traffic mix (``traffic/<name>.json``: the
-pipeline's flags); ``workloads/<cell>.json`` holds the limits of the
-numbers that decide ``correct``, and ``metrics/<metric>.py`` the reader of
-each metric.  The harness reads them by name and holds nothing of any one
-cell.
+entry point and the pipeline's flags); ``workloads/<cell>.json`` holds the
+limits of the numbers that decide ``correct``, and ``metrics/<metric>.py``
+the reader of each metric.  The harness reads them by name and holds
+nothing of any one cell.
 
-A sample is one whole call of ``duet_tpu_torch.pipeline.run_pipeline`` on
-the cell's BAM and FASTA, into an output directory of its own.  Samples run
-one after another, in this process.
+A sample is one whole call of the traffic's entry on one of the cell's
+inputs (a BAM and a FASTA), into an output directory of its own:
+``duet_tpu_torch.pipeline``'s ``run_pipeline`` under ``"entry": "batch"``
+(or no ``entry``), its ``run_pipeline_streaming`` (``--stream``, contig by
+contig) under ``"entry": "stream"``.  Samples run one after another, in
+this process.  A traffic's ``"inputs": K`` (1 when absent) has the run
+simulate K inputs from the seed and take them in turn, so that the window
+holds about as many samples of each: the run's first input from the seed
+itself, the others from seeds drawn from it (``input_seeds``).
 """
 
 from __future__ import annotations
@@ -25,7 +31,9 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor
 from dataclasses import dataclass, field
+from multiprocessing import get_context
 
 from h100_bench import clock, compare, trace
 
@@ -33,6 +41,8 @@ BENCH_DIR = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(BENCH_DIR)
 FORBIDDEN = ("jax", "jaxlib", "flax", "duet_tpu")
 TRACED_SAMPLES = 3
+# a traffic's "entry" -> the function of duet_tpu_torch.pipeline it calls
+ENTRIES = {"batch": "run_pipeline", "stream": "run_pipeline_streaming"}
 
 
 @dataclass
@@ -79,12 +89,26 @@ def load_cell(name: str, root: str = ROOT) -> Cell:
     def applies(metric: dict) -> bool:
         return name in metric.get("workloads", [name])
 
+    traffic = _load(os.path.join(BENCH_DIR, "traffic",
+                                 entry["traffic"] + ".json"))
+    inputs = traffic.get("inputs", 1)
+    if type(inputs) is not int or inputs < 1:
+        raise SystemExit(f"cell {name!r}: traffic {entry['traffic']!r} has "
+                         f"inputs {inputs!r}, not a whole number from 1")
+    if traffic.get("entry", "batch") not in ENTRIES:
+        raise SystemExit(f"cell {name!r}: traffic {entry['traffic']!r} has "
+                         f"entry {traffic['entry']!r}, not one of "
+                         f"{sorted(ENTRIES)}")
+    refused = compare.unhonoured(traffic["pipeline"])
+    if refused:
+        raise SystemExit(f"cell {name!r}: traffic {entry['traffic']!r} sets "
+                         f"{', '.join(refused)}, which the plain reference "
+                         f"cannot honour")
     return Cell(
         name=name, chips=entry["chips"],
         config_path=os.path.join(BENCH_DIR, "configs",
                                  entry["config"] + ".json"),
-        traffic=_load(os.path.join(BENCH_DIR, "traffic",
-                                   entry["traffic"] + ".json")),
+        traffic=traffic,
         limits=_load(os.path.join(BENCH_DIR, "workloads",
                                   name + ".json"))["limits"],
         end_to_end=[m["name"] for m in manifest["end_to_end"] if applies(m)],
@@ -113,19 +137,36 @@ def _wait(proc: subprocess.Popen, what: str) -> str:
     return out
 
 
-def prepare(cell: Cell, seed: int, data: str, card: bool) -> dict:
-    """Write the cell's input from the seed, and build the program's
-    kernels and native ingest, in two child processes at once, so that
-    neither the simulator's memory nor a build touches this process.  With
-    `card`, the build child also reports the cards it sees; without it
-    (the CPU tests) it builds nothing."""
-    sim = _child(["-m", "h100_bench.sim", cell.config_path, str(seed), data])
+def input_seeds(seed: int, inputs: int) -> list[int]:
+    """The simulator's seed of each of a run's `inputs` inputs: the run's
+    own seed, then seeds drawn from it."""
+    import numpy as np
+
+    drawn = np.random.SeedSequence(seed).generate_state(inputs - 1,
+                                                         np.uint64)
+    return [seed] + [int(s) for s in drawn]
+
+
+def prepare(cell: Cell, seed: int, work: str, card: bool,
+            inputs: int | None = None) -> tuple[dict, list[str]]:
+    """Write the cell's inputs from the seed (`inputs`, by default the
+    traffic's), and build the program's kernels and native ingest, in
+    child processes at once, so that neither the simulator's memory nor a
+    build touches this process.  With `card`, the build child also reports
+    the cards it sees; without it (the CPU tests) it builds nothing.
+    Returns (the cards, each input's directory under `work`)."""
+    seeds = input_seeds(seed, inputs or cell.traffic.get("inputs", 1))
+    datas = [os.path.join(work, "data" + (str(i) if i else ""))
+             for i in range(len(seeds))]
+    sims = [_child(["-m", "h100_bench.sim", cell.config_path, str(s), d])
+            for s, d in zip(seeds, datas)]
     build = _child(["-m", "h100_bench.build"] + ([] if card else ["--none"]))
     try:
         cards = json.loads(_wait(build, "the build").strip().splitlines()[-1])
     finally:
-        _wait(sim, "the simulator")
-    return cards
+        for sim in sims:
+            _wait(sim, "the simulator")
+    return cards, datas
 
 
 def _pipeline_config(cell: Cell, data: str, out: str, device: str):
@@ -139,16 +180,18 @@ def _pipeline_config(cell: Cell, data: str, out: str, device: str):
 
 def sample(cell: Cell, data: str, out: str, device: str,
            peaks: dict | None = None) -> tuple[float, dict, dict]:
-    """One whole sample: (wall seconds, its metrics.json, each stage's
-    seconds on the harness's clock); `peaks` takes the high-water mark in
-    MB as each stage ends."""
-    from duet_tpu_torch.pipeline import run_pipeline
+    """One whole sample through the traffic's entry: (wall seconds, its
+    metrics.json, each stage's seconds on the harness's clock); `peaks`
+    takes the high-water mark in MB as each stage ends."""
+    from duet_tpu_torch import pipeline
 
+    entry = cell.traffic.get("entry", "batch")
+    run = getattr(pipeline, ENTRIES[entry])
     cfg = _pipeline_config(cell, data, out, device)
     stages: dict = {}
-    with clock.stage_clock(stages, peaks):
+    with clock.stage_clock(stages, peaks, entry):
         t = time.perf_counter()
-        run_pipeline(cfg)
+        run(cfg)
         if device == "cuda":
             import torch
 
@@ -210,15 +253,16 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool,
 
 
 def _run(cell, seed, seconds, traced, device, card, t0, work) -> dict:
-    data = os.path.join(work, "data")
-    cards = prepare(cell, seed, data, card)
+    cards, datas = prepare(cell, seed, work, card)
     if card and (not cards["cuda"] or cards["count"] < cell.chips):
         raise SystemExit(f"cell {cell.name} needs {cell.chips} card(s); "
                          f"torch sees {cards}")
     run = Run()
     run.cold_s, run.cold_metrics, _ = sample(
-        cell, data, os.path.join(work, "cold"), device, run.cold_peaks)
-    sample(cell, data, os.path.join(work, "warm"), device)
+        cell, datas[0], os.path.join(work, "cold"), device, run.cold_peaks)
+    # a warm-up sample on every input but the cold one's, or on that one
+    for k, data in enumerate(datas[1:] or datas):
+        sample(cell, data, os.path.join(work, f"warm{k}"), device)
     print(f"[cold] {run.cold_s} s, backends "
           + json.dumps(run.cold_metrics["backends"]),
           file=sys.stderr, flush=True)
@@ -229,7 +273,8 @@ def _run(cell, seed, seconds, traced, device, card, t0, work) -> dict:
     outs = []
     while time.perf_counter() - window_start < seconds:
         out = os.path.join(work, f"s{len(outs)}")
-        wall, metrics, stages = sample(cell, data, out, device)
+        wall, metrics, stages = sample(
+            cell, datas[len(outs) % len(datas)], out, device)
         outs.append(out)
         run.sample_s.append(wall)
         run.sample_metrics.append(metrics)
@@ -240,8 +285,8 @@ def _run(cell, seed, seconds, traced, device, card, t0, work) -> dict:
     run.peak_host_mb = clock.peak_mb()
     if traced:
         run.trace = trace.traced_samples(
-            lambda k: sample(cell, data, os.path.join(work, f"t{k}"),
-                             device),
+            lambda k: sample(cell, datas[k % len(datas)],
+                             os.path.join(work, f"t{k}"), device),
             TRACED_SAMPLES, os.path.join(work, "trace.json"))
         if card and run.trace.busy_s <= 0:
             raise SystemExit("the traced samples ran no operation on the "
@@ -263,14 +308,34 @@ def _run(cell, seed, seconds, traced, device, card, t0, work) -> dict:
 
         torch.cuda.empty_cache()
 
+    # each input's first sample against the reference, the inputs' in
+    # parallel processes; every later sample of an input against its first
+    firsts = outs[:len(datas)]
+    with ProcessPoolExecutor(len(firsts),
+                             mp_context=get_context("spawn")) as pool:
+        judged = list(pool.map(
+            compare.check_sample, firsts, datas[:len(firsts)],
+            [os.path.join(work, f"ref{i}") for i in range(len(firsts))],
+            [compare.reference_flags(cell.traffic["pipeline"])]
+            * len(firsts),
+            [cell.limits] * len(firsts)))
+    for i, c in enumerate(judged):
+        print(f"[input {i}] " + json.dumps(
+            {name: n["value"] for name, n in c.items()}),
+            file=sys.stderr, flush=True)
+    checks = {}     # each number at its worst over the inputs
+    for c in judged:
+        for name, n in c.items():
+            if name not in checks or n["value"] > checks[name]["value"]:
+                checks[name] = dict(n)
+    judged_ok = [all(n["value"] <= n["limit"] for n in c.values())
+                 for c in judged]
     digests = [artifact_digest(o) for o in outs]
-    checks = compare.check_sample(
-        outs[0], data, os.path.join(work, "ref"),
-        cell.traffic["pipeline"].get("snp_model", "auto"), cell.limits)
-    judged_ok = all(c["value"] <= c["limit"] for c in checks.values())
-    failed = sum(1 for d in digests if d != digests[0] or not judged_ok)
-    checks["samples_unlike_first"] = {
-        "value": sum(1 for d in digests if d != digests[0]), "limit": 0}
+    unlike = [digests[k] != digests[k % len(firsts)]
+              for k in range(len(outs))]
+    failed = sum(1 for k in range(len(outs))
+                 if unlike[k] or not judged_ok[k % len(firsts)])
+    checks["samples_unlike_first"] = {"value": sum(unlike), "limit": 0}
     for name, c in checks.items():
         print(f"check {name} {c['value']} limit {c['limit']}",
               file=sys.stderr, flush=True)

@@ -3,10 +3,10 @@ numbers that decide ``correct``:
 
     python -m h100_bench.readings --workload CELL --seeds 1,2,3
 
-For each seed it simulates the cell's input, runs the reference computed
-in the precision below the configuration's (``reference.control``) in the
-program's place, and judges it as the benchmark judges a sample; one JSON
-line a seed.  The benchmark's own runs do not run it.  Needs no card."""
+For each seed it simulates the cell's first input, runs the reference
+computed in the precision below the configuration's (``reference.control``)
+in the program's place, and judges it as the benchmark judges a sample; one
+JSON line a seed.  The benchmark's own runs do not run it.  Needs no card."""
 
 from __future__ import annotations
 
@@ -32,11 +32,10 @@ def main(argv=None) -> int:
         work = tempfile.mkdtemp(prefix="h100_bench-readings-")
         try:
             t = time.perf_counter()
-            data = os.path.join(work, "data")
-            harness.prepare(cell, seed, data, card=False)
+            _, (data,) = harness.prepare(cell, seed, work, card=False,
+                                         inputs=1)
             checks = compare.control_checks(
-                data, work, cell.traffic["pipeline"].get("snp_model", "auto"),
-                cell.limits, CONTROL)
+                data, work, cell.traffic["pipeline"], cell.limits, CONTROL)
             print(json.dumps({"workload": cell.name, "seed": seed,
                               "control": CONTROL.name, "checks": checks,
                               "seconds": time.perf_counter() - t}),

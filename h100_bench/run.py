@@ -2,14 +2,16 @@
 
     python3 h100_bench/run.py --workload CELL --seed N --seconds S --trace 0|1
 
-Runs the cell of ``BENCHMARK.json`` named CELL once: its input simulated
-from the seed, the program built, a cold and a warm-up sample, then whole
-samples one after another for S seconds (``harness.run_cell``), and the
-check against the plain reference.  The last line of standard output is
-the result as one JSON object: the cell's end-to-end metrics, or with
-``--trace 1`` its per-layer metrics.  The numbers compared with the
-reference, each with its limit, are the last lines of standard error and
-the result's last key.  Exits with 1, printing no result, when torch sees
+Runs the cell of ``BENCHMARK.json`` named CELL once: its inputs simulated
+from the seed, the program built, a cold sample and a warm-up sample on
+each other input (or a second on the one), then whole samples one after
+another for S seconds, the inputs in turn (``harness.run_cell``), and the
+check of each input's first sample against the plain reference.  The
+last line of standard output is the result as one JSON object: the cell's
+end-to-end metrics, or with ``--trace 1`` its per-layer metrics.  The
+numbers compared with the reference, each with its limit (each at its
+worst over the inputs), are the last lines of standard error and the
+result's last key.  Exits with 1, printing no result, when torch sees
 fewer cards than the cell asks for or when JAX or the JAX package
 ``duet_tpu`` was loaded.
 """

@@ -1,5 +1,9 @@
 """The trace reductions on a handmade Chrome trace, and the harness's clock
-around the program's stages."""
+around the program's stages under each entry."""
+
+import dataclasses
+
+import pytest
 
 from h100_bench.trace import device_busy, device_ops, idle_by_stage
 
@@ -57,9 +61,60 @@ def test_stage_clock_times_each_stage_and_restores_the_program(
     assert metrics["backends"]
 
 
-def test_a_stage_missing_from_a_sample_fails_the_reading():
-    import pytest
+def stream_names():
+    """Every name the stream clock wraps, with what it holds now."""
+    from duet_tpu_torch import pipeline
+    from duet_tpu_torch.io import readstore
+    from duet_tpu_torch.models import snp_caller
 
+    from h100_bench import clock
+
+    owners = [(readstore, "stream_contig_reads_auto"),
+              (readstore, "prefetch_iter"), (pipeline, "FastaFile"),
+              (snp_caller, "call_contig_snps")] + \
+        [(pipeline, name) for name, _ in clock.STREAM_PIPELINE_NAMES]
+    return {(o.__name__, n): getattr(o, n) for o, n in owners}
+
+
+@pytest.mark.parametrize("prefetch", [True, False])
+def test_stage_clock_times_a_stream_sample_contig_by_contig(
+        tmp_path, small_data, monkeypatch, prefetch):
+    """Under ``"entry": "stream"`` the clock times the same five keys,
+    each summed over the contigs and inside the program's own span of that
+    stage, and puts every wrapped name back."""
+    import os
+
+    from duet_tpu_torch import pipeline
+
+    from h100_bench import clock, harness
+
+    if not prefetch:   # the loop decodes ahead only with 4 cores or more
+        monkeypatch.setattr(os, "sched_getaffinity", lambda pid: {0})
+    before = stream_names()
+    stages, ingest = pipeline.STAGES, pipeline._ingest
+    cell = harness.load_cell("q20-20x.auto")
+    cell = dataclasses.replace(cell, traffic={**cell.traffic,
+                                              "entry": "stream"})
+    peaks = {}
+    wall, metrics, timed = harness.sample(
+        cell, small_data["synth-ont-q20-20x"], str(tmp_path / "out"), "cpu",
+        peaks)
+    assert stream_names() == before
+    assert pipeline.STAGES is stages and pipeline._ingest is ingest
+    assert metrics["mode"] == "streaming" and metrics["counts"]["contigs"] == 2
+    keys = {"ingest", "snp_calling", "sv_calling", "snp_phasing",
+            "sv_phasing"}
+    assert set(timed) == set(peaks) == keys
+    assert 0 < sum(timed.values()) <= wall
+    for key in keys:
+        # the program's span of the stage holds the timed pieces, and
+        # little else (its seconds are rounded to 0.1 ms)
+        own = metrics["stages"][key]
+        assert 0.5 * own < timed[key] <= own + 2e-4, (key, timed, own)
+    assert 0 < max(peaks.values()) <= clock.peak_mb()
+
+
+def test_a_stage_missing_from_a_sample_fails_the_reading():
     from h100_bench.harness import Run
     from h100_bench.metrics import stage_mean
 
