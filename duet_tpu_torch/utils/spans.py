@@ -34,8 +34,10 @@ StageTimer``), their children ``<stage>.<step>``, the artifact writers
 ``write.<artifact>`` and the tabix index ``index.tabix``, the device
 phases ``device.<stage>.{h2d,compute,d2h}`` (``utils.devcost``); the
 counters ``dispatch.<stage>.<backend>`` (``utils.dispatch``),
-``device.<stage>.{h2d,d2h}_bytes``, the native decode's ``ingest.*`` and
-the neural caller's ``snp_calling.candidates``.
+``device.<stage>.{h2d,d2h}_bytes``, the native decode's ``ingest.*``,
+the neural caller's ``snp_calling.candidates`` and the switch
+correction's ``snp_phasing.{correct_rounds,switch_flips,
+switch_correct_fallbacks}``.
 No name begins with ``stage:``, the benchmark's own range prefix.
 """
 
