@@ -10,12 +10,19 @@ spec: the UCSC hierarchical binning scheme over virtual file offsets
 index, and a BGZF-compressed TBI\\1 payload.  `query()` performs true
 random access through the index — seek to a block, not a scan — which is
 also how the tests prove index correctness.
+
+Two functions give the same bytes: ``build_tabix_index`` re-reads a file
+that already exists, and ``tabix_payload`` takes what the writer of the
+file knows of its records (reference, interval, virtual start and end
+offsets) as arrays, with no re-read.
 """
 
 from __future__ import annotations
 
 import struct
 import zlib
+
+import numpy as np
 
 from duet_tpu_torch.io.bgzf import BgzfWriter
 from duet_tpu_torch.utils.spans import span
@@ -39,6 +46,17 @@ def reg2bin(beg: int, end: int) -> int:
     if beg >> 26 == end >> 26:
         return ((1 << 3) - 1) // 7 + (beg >> 26)
     return 0
+
+
+def reg2bin_array(beg: np.ndarray, end: np.ndarray) -> np.ndarray:
+    """``reg2bin`` of each interval: the finest level whose bin holds both
+    ends wins."""
+    last = end - 1
+    out = np.zeros(len(beg), np.int64)
+    for shift, base in ((26, 1), (23, 9), (20, 73), (17, 585), (14, 4681)):
+        same = (beg >> shift) == (last >> shift)
+        out[same] = base + (beg[same] >> shift)
+    return out
 
 
 def reg2bins(beg: int, end: int) -> list[int]:
@@ -200,6 +218,101 @@ def build_tabix_index(vcf_gz_path: str) -> bytes:
         for v in linear[rid]:
             out += struct.pack("<Q", v)
     return bytes(out)
+
+
+def _excl_cumsum(a: np.ndarray) -> np.ndarray:
+    out = np.zeros(len(a), np.int64)
+    np.cumsum(a[:-1], out=out[1:])
+    return out
+
+
+def tabix_payload(names, rid, beg, end, vbeg, vend) -> bytes:
+    """``build_tabix_index``'s bytes from the records' columns in file
+    order: reference id (an index into `names`), the 0-based half-open
+    interval, and the virtual offsets of the line's start and of the next
+    line's (for the last line, its start plus its length with the
+    newline).  References are numbered by their first record, as a
+    re-read names them; a name with no record is left out."""
+    rid, beg, end, vbeg, vend = (np.asarray(a, np.int64)
+                                 for a in (rid, beg, end, vbeg, vend))
+    used, first = np.unique(rid, return_index=True)
+    order = np.argsort(first)
+    renum = np.empty(len(used), np.int64)
+    renum[order] = np.arange(len(used))
+    rid = renum[np.searchsorted(used, rid)]
+    names = [n.encode() if isinstance(n, str) else bytes(n)
+             for n in (names[i] for i in used[order].tolist())]
+    n_ref, n = len(names), len(rid)
+
+    # chunks: a bin's records in file order, one chunk while each record
+    # starts where the one before it in the bin ended
+    b = reg2bin_array(beg, end)
+    o = np.lexsort((b, rid))
+    r_o, b_o, vb, ve = rid[o], b[o], vbeg[o], vend[o]
+    new_bin = np.ones(n, bool)
+    new_bin[1:] = (r_o[1:] != r_o[:-1]) | (b_o[1:] != b_o[:-1])
+    new_chunk = new_bin.copy()
+    new_chunk[1:] |= ve[:-1] != vb[1:]
+    bin_at = np.flatnonzero(new_bin)
+    chunk_at = np.flatnonzero(new_chunk)
+    chunk_beg = vb[chunk_at]
+    chunk_end = ve[np.append(chunk_at[1:] - 1, n - 1)] if n else ve[:0]
+    chunk_bin = np.cumsum(new_bin)[chunk_at] - 1
+    n_chunk = np.bincount(chunk_bin, minlength=len(bin_at))
+    bin_ref = r_o[bin_at]
+    n_bin = np.bincount(bin_ref, minlength=n_ref)
+
+    # the 16 kb linear index: the least start offset of the records over
+    # each window (a start of 0 counts as none), empty windows filled from
+    # the window before within a reference
+    lo = beg >> _LINEAR_SHIFT
+    hi = np.maximum(end - 1, beg) >> _LINEAR_SHIFT
+    n_lin = np.zeros(n_ref, np.int64)
+    np.maximum.at(n_lin, rid, hi + 1)
+    lin_at = _excl_cumsum(n_lin)
+    width = hi - lo + 1
+    rec = np.repeat(np.arange(n), width)
+    window = lo[rec] + np.arange(len(rec)) - np.repeat(_excl_cumsum(width),
+                                                       width)
+    keep = vbeg[rec] > 0
+    lin = np.full(int(n_lin.sum()), np.iinfo(np.int64).max)
+    np.minimum.at(lin, lin_at[rid[rec[keep]]] + window[keep], vbeg[rec[keep]])
+    lin[lin == np.iinfo(np.int64).max] = 0
+    src = np.where(lin != 0, np.arange(len(lin)), 0)
+    src[lin_at] = lin_at
+    lin = lin[np.maximum.accumulate(src)]
+
+    # the payload as little-endian 32-bit words: per reference n_bin, each
+    # bin (bin, n_chunk, its chunks' offset pairs), n_intv, the windows
+    bin_words = 2 + 4 * n_chunk
+    ref_bin_words = np.bincount(bin_ref, weights=bin_words,
+                                minlength=n_ref).astype(np.int64)
+    ref_at = _excl_cumsum(2 + ref_bin_words + 2 * n_lin)
+    words = np.zeros(int((2 + ref_bin_words + 2 * n_lin).sum()), "<u4")
+    words[ref_at] = n_bin
+    bin_excl = _excl_cumsum(bin_words)
+    bin_word = (ref_at[bin_ref] + 1 + bin_excl
+                - bin_excl[_excl_cumsum(n_bin)[bin_ref]])
+    words[bin_word] = b_o[bin_at]
+    words[bin_word + 1] = n_chunk
+    chunk_word = (bin_word[chunk_bin] + 2
+                  + 4 * (np.arange(len(chunk_at))
+                         - _excl_cumsum(n_chunk)[chunk_bin]))
+    for k, v in enumerate((chunk_beg, chunk_end)):
+        words[chunk_word + 2 * k] = v & 0xFFFFFFFF
+        words[chunk_word + 2 * k + 1] = v >> 32
+    lin_word = ref_at + 1 + ref_bin_words
+    words[lin_word] = n_lin
+    lin_ref = np.repeat(np.arange(n_ref), n_lin)
+    at = lin_word[lin_ref] + 1 + 2 * (np.arange(len(lin)) - lin_at[lin_ref])
+    words[at] = lin & 0xFFFFFFFF
+    words[at + 1] = lin >> 32
+
+    concat = b"\x00".join(names) + b"\x00" if names else b""
+    return (TBI_MAGIC
+            + struct.pack("<iiiiiii", n_ref, _VCF_FORMAT, 1, 2, 0, ord("#"),
+                          0)
+            + struct.pack("<i", len(concat)) + concat + words.tobytes())
 
 
 @span("index.tabix")

@@ -10,7 +10,9 @@ FORMAT/sample column across the three caller layouts (>4 fields: GT:DR:DV:…;
 Emission covers: the phased_sv.vcf writer with byte-parity to
 src/duet/write_file.py (header layout incl. the 'FORMAT\tVALUE' column line,
 Duet.<idx> IDs, 'SVTYPE=<T>' INFO form), plus pileup-VCF and caller-VCF
-writers for the in-framework SNP/SV callers.
+writers for the in-framework SNP/SV callers.  ``write_vcf_indexed`` writes
+a .vcf.gz whose records' intervals the caller already holds as arrays, and
+indexes it from the BGZF writer's own offsets.
 """
 
 from __future__ import annotations
@@ -18,9 +20,11 @@ from __future__ import annotations
 import gzip
 from dataclasses import dataclass, field
 
+import numpy as np
+
 from duet_tpu_torch.io.bgzf import BgzfReader, BgzfWriter, is_bgzf
 from duet_tpu_torch.utils.chrom import matches_chrom, resolve_contig_names
-from duet_tpu_torch.utils.spans import span
+from duet_tpu_torch.utils.spans import count, span
 
 
 def open_maybe_gzip(path: str, mode: str = "rt"):
@@ -240,3 +244,26 @@ def write_vcf(path: str, header_lines: list[str], records: list[str],
     else:
         with open(path, "w") as f:
             f.write(text)
+
+
+def write_vcf_indexed(path: str, header_lines: list[str], records: list[str],
+                      names, rid, beg, end, threads: int = 1) -> None:
+    """``write_vcf``'s .vcf.gz and .tbi bytes for records whose reference
+    (`rid`, an index into `names`) and 0-based half-open interval the
+    caller gives: the text is deflated on `threads` threads and the index
+    built from the offsets the writer kept, with no re-read."""
+    from duet_tpu_torch.io.tabix import tabix_payload
+
+    text = ("\n".join(header_lines + records) + "\n").encode()
+    with BgzfWriter(path, threads=threads) as w:
+        w.write(text)
+    with span("index.tabix"):
+        ends = np.flatnonzero(np.frombuffer(text, np.uint8) == 10) + 1
+        if len(ends) != len(header_lines) + len(records):
+            raise ValueError("a header line or record holds a newline")
+        starts = np.append(0, ends[:-1])[len(header_lines):]
+        vbeg = w.voffsets(starts)
+        vend = np.append(vbeg[1:], vbeg[-1:] + (len(text) - starts[-1:]))
+        with BgzfWriter(path + ".tbi") as tbi:
+            tbi.write(tabix_payload(names, rid, beg, end, vbeg, vend))
+        count("index.tabix.from_writer")

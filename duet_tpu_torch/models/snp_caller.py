@@ -6,7 +6,9 @@ counting rule and the VCF writers are the port's copies in
 ``snp_caller_host``; the functions here are copies of its dispatch
 functions with the device lines changed to the torch kernel
 (``ops.pileup``) and the neural caller to the torch module
-(``models.nn_snp``).  Two changes keep the device route's host side below
+(``models.nn_snp``).  ``write_pileup_vcf`` writes the host copy's bytes
+from the sites' columns and indexes the file from its writer's offsets.
+Two changes keep the device route's host side below
 the host route's: the read bases are packed into the kernel's payload on
 the device (``_payload_on_device``, the bytes of ``_pack_codes`` and
 ``_nibble_pack``), and the at-site pass of several contigs runs on the
@@ -20,7 +22,9 @@ import numpy as np
 import torch
 
 from duet_tpu_torch.io.readstore import ReadStore
+from duet_tpu_torch.io.vcf import write_vcf_indexed
 from duet_tpu_torch.models.snp_caller_host import (
+    BASES,
     DEVICE_MAX_SITE_DENSITY,
     DEVICE_PILEUP_WINDOW,
     ContigSnps,
@@ -401,3 +405,37 @@ def _device_store(work, ref_codes: dict[str, np.ndarray], cfg: SnpCallConfig,
             pending[c] = ex.submit(_at_site_obs, crs[c], cfg, snps.pos)
         obs_out = {c: pending[c].result() for c, _ in work}
     return snps_out, obs_out
+
+
+@span("write.pileup_vcf")
+def write_pileup_vcf(path: str, snps: dict[str, ContigSnps],
+                     contig_lengths: dict[str, int], threads: int = 1) -> None:
+    """``snp_caller_host.write_pileup_vcf``'s file and .tbi, the records
+    formatted from each contig's columns and indexed from the BGZF
+    writer's offsets (deflated on `threads` threads)."""
+    header = [
+        "##fileformat=VCFv4.2",
+        "##source=duet_tpu.snp_caller",
+    ] + [
+        f"##contig=<ID={c},length={contig_lengths.get(c, 0)}>" for c in snps
+    ] + [
+        '##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">',
+        '##FORMAT=<ID=DP,Number=1,Type=Integer,Description="Depth">',
+        '##FORMAT=<ID=AD,Number=R,Type=Integer,Description="Allele depths">',
+        "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\tSAMPLE",
+    ]
+    bases = np.array(list(BASES))
+    records: list[str] = []
+    for contig, s in snps.items():
+        records += [
+            f"{contig}\t{p}\t.\t{r}\t{a}\t{ac}\tPASS\t.\tGT:DP:AD\t{gt}:"
+            f"{dp}:{rc},{ac}"
+            for p, r, a, ac, gt, dp, rc in zip(
+                (s.pos + 1).tolist(), bases[s.ref_code].tolist(),
+                bases[s.alt_code].tolist(), s.alt_count.tolist(),
+                np.where(s.is_het, "0/1", "1/1").tolist(), s.depth.tolist(),
+                (s.depth - s.alt_count).tolist())]
+    pos = np.concatenate([s.pos for s in snps.values()] + [np.zeros(0, int)])
+    rid = np.repeat(np.arange(len(snps)), [len(s.pos) for s in snps.values()])
+    write_vcf_indexed(path, header, records, list(snps), rid, pos, pos + 1,
+                      threads=threads)

@@ -21,6 +21,9 @@ the sharded ``parallel.mesh.phase_and_tag_sharded`` instead, as in
 duet_tpu, whose mesh route runs no Pallas kernel either.
 
 Both are pinned bit-identical to the host scorer ``_haplotag``.
+
+``write_phased_snp_vcf`` writes the host copy's bytes from the sites'
+columns and indexes the file from its writer's offsets.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from duet_tpu_torch.io.vcf import write_vcf_indexed
+from duet_tpu_torch.models.snp_caller_host import BASES, ContigSnps
 from duet_tpu_torch.models.snp_phaser_host import (
     HAPLOTAG_B,
     HAPLOTAG_BATCH,
@@ -644,3 +649,52 @@ def score_contigs_batched(cores: dict[str, tuple], use_device: bool,
         pending_nnz += nnz
     flush()
     return results
+
+
+def _het_rows(snps: ContigSnps, site_pos: np.ndarray) -> np.ndarray:
+    """The row of `snps` of each het site position, by the host copy's map
+    of position to row: the last row of a position wins, and a position
+    with no het row raises KeyError."""
+    het = np.flatnonzero(snps.is_het)
+    pos_to_row = dict(zip(snps.pos[het].tolist(), het.tolist()))
+    return np.array([pos_to_row[p] for p in site_pos.tolist()], np.int64)
+
+
+@span("write.phased_snp_vcf")
+def write_phased_snp_vcf(path: str, contig: str, snps: ContigSnps,
+                         result: PhaseResult, threads: int = 1) -> None:
+    """``snp_phaser_host.write_phased_snp_vcf``'s file and .tbi: the het
+    sites in phasing order, then the hom sites, put in position order by
+    one stable sort, formatted from their columns and indexed from the
+    BGZF writer's offsets (deflated on `threads` threads)."""
+    header = [
+        "##fileformat=VCFv4.2",
+        "##source=duet_tpu.snp_phaser",
+        f"##contig=<ID={contig}>",
+        '##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">',
+        '##FORMAT=<ID=PS,Number=1,Type=Integer,Description="Phase set">',
+        "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\tSAMPLE",
+    ]
+    site_pos = np.asarray(result.site_pos, np.int64)
+    het = _het_rows(snps, site_pos)
+    hom = np.flatnonzero(~snps.is_het)
+    sample = np.full(len(site_pos), "0/1:.", dtype=object)
+    phased = np.flatnonzero(result.phase != 0)
+    sample[phased] = [
+        f"{'1|0' if p > 0 else '0|1'}:{ps}" for p, ps in zip(
+            result.phase[phased].tolist(),
+            result.block_ps[result.block_id[phased]].tolist())]
+    pos = np.concatenate([site_pos, snps.pos[hom]])
+    order = np.argsort(pos, kind="stable")
+    pos = pos[order]
+    rows = np.concatenate([het, hom])[order]
+    sample = np.concatenate([sample, np.full(len(hom), "1/1:.", object)])
+    bases = np.array(list(BASES))
+    records = [f"{contig}\t{p}\t.\t{r}\t{a}\t.\tPASS\t.\tGT:PS\t{g}"
+               for p, r, a, g in zip(
+                   (pos + 1).tolist(), bases[snps.ref_code[rows]].tolist(),
+                   bases[snps.alt_code[rows]].tolist(),
+                   sample[order].tolist())]
+    write_vcf_indexed(path, header, records, [contig],
+                      np.zeros(len(pos), np.int64), pos, pos + 1,
+                      threads=threads)

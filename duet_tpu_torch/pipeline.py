@@ -51,22 +51,24 @@ from duet_tpu_torch.io.vcf import (
     parse_sv_vcf,
     write_phased_sv_header,
 )
-from duet_tpu_torch.models.snp_caller import call_snps_for_store
+from duet_tpu_torch.models.snp_caller import (
+    call_snps_for_store,
+    write_pileup_vcf,
+)
 from duet_tpu_torch.models.snp_caller_host import (
     ContigSnps,
     SnpCallConfig,
     read_pileup_vcf,
-    write_pileup_vcf,
 )
 from duet_tpu_torch.models.snp_phaser import (
     phase_contig,
     phase_contig_core,
     score_contigs_batched,
+    write_phased_snp_vcf,
 )
 from duet_tpu_torch.models.snp_phaser_host import (
     PhaseResult,
     read_hap_map,
-    write_phased_snp_vcf,
 )
 from duet_tpu_torch.models.sv_caller import call_contig_with_evidence
 from duet_tpu_torch.models.sv_caller_host import (
@@ -479,6 +481,11 @@ def _write_haplotag_table(path: str, haps: dict[str, tuple[int, int, int]]) -> N
             f.write(f"{name}\t{hap}\t{ps}\t{pc}\n")
 
 
+def _writer_threads(cfg: PipelineConfig) -> int:
+    """The threads a BGZF artifact deflates on: -t, at most the cores."""
+    return min(cfg.threads, os.cpu_count() or cfg.threads)
+
+
 @span("write.haplotag_bam")
 def _write_haplotag_bam(path: str, cr, haps: dict[str, tuple[int, int, int]],
                         contig_lengths: dict[str, int],
@@ -586,7 +593,8 @@ def stage_snp_calling(cfg: PipelineConfig, st: PipelineState) -> None:
         # by process 0 at the final stage
         _dump_part(cfg, "snp", pid, (st.snps, st.store.contig_lengths))
     else:
-        write_pileup_vcf(artifact, st.snps, st.store.contig_lengths)
+        write_pileup_vcf(artifact, st.snps, st.store.contig_lengths,
+                         threads=_writer_threads(cfg))
     n = sum(len(s.pos) for s in st.snps.values())
     get_logger().info("called %d SNP sites over %d contigs", n, len(st.snps))
 
@@ -701,7 +709,7 @@ def stage_snp_phasing(cfg: PipelineConfig, st: PipelineState) -> None:
         st.read_haps[contig] = read_hap_map(cr, result)
         write_phased_snp_vcf(
             os.path.join(out_dir, f"phased_{contig}.vcf.gz"), contig, snps,
-            result)
+            result, threads=_writer_threads(cfg))
         _write_haplotag_table(
             os.path.join(out_dir, f"{contig}.haplotags.tsv"),
             st.read_haps[contig])
@@ -709,7 +717,7 @@ def stage_snp_phasing(cfg: PipelineConfig, st: PipelineState) -> None:
             _write_haplotag_bam(
                 os.path.join(out_dir, f"{contig}.bam"), cr,
                 st.read_haps[contig], st.store.contig_lengths,
-                threads=min(cfg.threads, os.cpu_count() or cfg.threads))
+                threads=_writer_threads(cfg))
         n_reads = len(result.row_names) if result.row_names else cr.n
         get_logger().info(
             "[PHASING] %s: %d het sites, %d blocks, %d/%d reads tagged",
@@ -741,7 +749,7 @@ def _merge_parts_and_write(cfg: PipelineConfig, nproc: int) -> None:
         lengths.update(part_lengths)
     snps = _bam_order(cfg, snps)
     write_pileup_vcf(os.path.join(cfg.output, "snp_calling", "pileup.vcf.gz"),
-                     snps, lengths)
+                     snps, lengths, threads=_writer_threads(cfg))
 
     calls: dict = {}
     evidence: dict = {}
@@ -1002,7 +1010,7 @@ def run_pipeline_streaming(cfg: PipelineConfig) -> str:
                 st.read_haps[cr.contig] = read_hap_map(cr, result)
                 write_phased_snp_vcf(
                     os.path.join(ph_dir, f"phased_{cr.contig}.vcf.gz"),
-                    cr.contig, snps, result)
+                    cr.contig, snps, result, threads=_writer_threads(cfg))
                 _write_haplotag_table(
                     os.path.join(ph_dir, f"{cr.contig}.haplotags.tsv"),
                     st.read_haps[cr.contig])
@@ -1013,7 +1021,8 @@ def run_pipeline_streaming(cfg: PipelineConfig) -> str:
             st.ref.drop_cache(fa_name)
             # drop this contig before the next one decodes beside it
             del cr, codes, site_obs, result
-    write_pileup_vcf(os.path.join(snp_dir, "pileup.vcf.gz"), snps_all, lengths)
+    write_pileup_vcf(os.path.join(snp_dir, "pileup.vcf.gz"), snps_all, lengths,
+                     threads=_writer_threads(cfg))
     write_sv_vcf(os.path.join(sv_dir, "variants.vcf"), calls_all, lengths,
                  family=cfg.sv_caller,
                  bnds=call_bnds(bnd_evidence, cfg.sv_cfg()))

@@ -33,7 +33,9 @@ Names in use (PERF.md §3): the stages ``ingest``, ``snp_calling``,
 StageTimer``), their children ``<stage>.<step>``, the artifact writers
 ``write.<artifact>`` and the tabix index ``index.tabix``, the device
 phases ``device.<stage>.{h2d,compute,d2h}`` (``utils.devcost``); the
-counters ``dispatch.<stage>.<backend>`` (``utils.dispatch``),
+counters ``index.tabix.from_writer`` (a .tbi built from its writer's
+offsets),
+``dispatch.<stage>.<backend>`` (``utils.dispatch``),
 ``device.<stage>.{h2d,d2h}_bytes``, the native decode's ``ingest.*``,
 the neural caller's ``snp_calling.candidates`` and the switch
 correction's ``snp_phasing.{correct_rounds,switch_flips,

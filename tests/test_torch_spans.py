@@ -267,6 +267,10 @@ def _check_registry(m: dict, expected: set) -> None:
         assert e["n"] >= 1 and 0 <= e["max_s"] <= e["s"] + 1e-6, name
         assert e["self_s"] <= e["s"] + 1e-6, name
     assert got["index.tabix"]["parent"].startswith("write.")
+    # pileup.vcf.gz and the one contig's phased VCF, each indexed once and
+    # from its writer's offsets: a re-read would index a third time
+    assert m["counters"]["index.tabix.from_writer"] == 2
+    assert got["index.tabix"]["n"] == 2
     native = m["ingest"]["native"]
     assert list(native) == NATIVE_KEYS
     c = m["counters"]
