@@ -342,9 +342,24 @@ def call_contig_snps(contig: str, cr, ref_codes: np.ndarray,
 def mesh_pileup_ok(cfg: SnpCallConfig) -> bool:
     """Mirrors ``duet_tpu.models.snp_caller.mesh_pileup_ok``: the
     coordinate-sharded pileup implements the counting rule ('auto'
-    resolves to it on a mesh); the nn stays on its own route.  One
-    predicate for the batch and streaming call sites."""
+    resolves to it on a mesh); the nn stays on its own route."""
     return cfg.model in ("counts", "auto")
+
+
+def call_snps_for_contig(contig: str, cr, ref_codes: np.ndarray,
+                         cfg: SnpCallConfig, device: torch.device = _CPU,
+                         nn_device: torch.device = _CPU, mesh=None):
+    """(ContigSnps, at-site observation stream) for one contig, the batch
+    and the streaming run's one route choice: with `mesh` and a rule the
+    sharded pileup implements (``mesh_pileup_ok``), the contig's coordinate
+    axis shards over the mesh's sp axis (``parallel.shard_pileup``),
+    whatever cfg.device says; else ``call_contig_snps``."""
+    if mesh is not None and mesh_pileup_ok(cfg):
+        from duet_tpu_torch.parallel.shard_pileup import call_snps_sharded
+
+        snps = call_snps_sharded(mesh, contig, cr, ref_codes, cfg)
+        return snps, _at_site_obs(cr, cfg, snps.pos)
+    return call_contig_snps(contig, cr, ref_codes, cfg, device, nn_device)
 
 
 def call_snps_for_store(store: ReadStore, ref_codes: dict[str, np.ndarray],
@@ -352,29 +367,23 @@ def call_snps_for_store(store: ReadStore, ref_codes: dict[str, np.ndarray],
                         device: torch.device = _CPU,
                         nn_device: torch.device = _CPU, mesh=None):
     """Mirrors ``duet_tpu.models.snp_caller.call_snps_for_store``:
-    (snps_by_contig, site_obs_by_contig).  With `mesh`, each contig's
-    coordinate axis shards over the mesh's sp axis
-    (``parallel.shard_pileup``), whatever cfg.device says."""
+    (snps_by_contig, site_obs_by_contig), each contig through
+    ``call_snps_for_contig``.  The sharded pileup goes contig by contig:
+    its shards already occupy every device of the mesh."""
     cfg = cfg or SnpCallConfig()
     work = [(c, cr) for c, cr in store.contigs.items() if c in ref_codes]
-    if mesh is not None and mesh_pileup_ok(cfg):
-        from duet_tpu_torch.parallel.shard_pileup import call_snps_sharded
-
-        snps_out = {c: call_snps_sharded(mesh, c, cr, ref_codes[c], cfg)
-                    for c, cr in work}
-        obs_out = {c: _at_site_obs(cr, cfg, snps_out[c].pos)
-                   for c, cr in work}
-        return snps_out, obs_out
-    if cfg.device and cfg.model in ("counts", "auto") and len(work) > 1:
+    sharded = mesh is not None and mesh_pileup_ok(cfg)
+    if not sharded and cfg.device and cfg.model in ("counts", "auto") \
+            and len(work) > 1:
         return _device_store(work, ref_codes, cfg, threads, device)
 
     def one(item):
         contig, cr = item
-        snps, site_obs = call_contig_snps(contig, cr, ref_codes[contig], cfg,
-                                          device, nn_device)
+        snps, site_obs = call_snps_for_contig(
+            contig, cr, ref_codes[contig], cfg, device, nn_device, mesh)
         return contig, snps, site_obs
 
-    if threads > 1 and len(work) > 1:
+    if threads > 1 and len(work) > 1 and not sharded:
         from concurrent.futures import ThreadPoolExecutor
 
         with ThreadPoolExecutor(threads) as ex:

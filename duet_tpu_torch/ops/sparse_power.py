@@ -230,35 +230,12 @@ def haplotag_score_sparse_multi(items, device: torch.device = _CPU):
 def haplotag_score_sparse(am, phase: np.ndarray, block_id: np.ndarray,
                           device: torch.device = _CPU):
     """Device twin of ``duet_tpu.models.snp_phaser._haplotag``'s scoring
-    math on one contig's COO.
+    math on one contig's COO: ``haplotag_score_sparse_multi`` of the one
+    item, which pads it as it would alone.
 
     Returns (hap, pc, best_block, overflow) numpy arrays of length
     am.n_reads; `overflow` marks reads whose observations span more than
     SLOT_K phase-set blocks — score those on the host.  best_block indexes
-    block_ps.  Raises ValueError on a block -1 at an observed site."""
-    from duet_tpu_torch.utils import devcost, dispatch
-
-    _check_blocks(am, block_id)
-    nnz = len(am.row)
-    n_reads = _pow2(am.n_reads)
-    n_sites = _pow2(am.n_sites)
-    nnz_pad = _pow2(nnz)
-    dispatch.record("haplotag", "device")
-    row = np.full(nnz_pad, n_reads, dtype=np.int32)
-    col = np.full(nnz_pad, n_sites, dtype=np.int32)
-    av = np.zeros(nnz_pad, dtype=np.int32)
-    row[:nnz] = am.row
-    col[:nnz] = am.col
-    # quality weights are integer-valued; int32 products keep every sum
-    # exact (see _score)
-    av[:nnz] = am.allele.astype(np.int32) * am.weight.astype(np.int32)
-    phase_pad = np.zeros(n_sites + 1, dtype=np.int32)
-    phase_pad[:am.n_sites] = phase
-    blk_pad = np.zeros(n_sites + 1, dtype=np.int32)
-    blk_pad[:am.n_sites] = block_id
-    dev = devcost.put("haplotag", device, row, col, av, phase_pad, blk_pad)
-    out = devcost.run("haplotag", device,
-                      lambda: _score(*dev, n_reads, n_sites))
-    n = am.n_reads
-    hap, pc, best, overflow = (devcost.get("haplotag", x)[:n] for x in out)
-    return hap.astype(np.int8), pc, best, overflow
+    block_ps.  Raises ValueError past INT32_EXACT_NNZ and on a block -1 at
+    an observed site."""
+    return haplotag_score_sparse_multi([(am, phase, block_id)], device)[0]

@@ -52,6 +52,7 @@ from duet_tpu_torch.io.vcf import (
     write_phased_sv_header,
 )
 from duet_tpu_torch.models.snp_caller import (
+    call_snps_for_contig,
     call_snps_for_store,
     write_pileup_vcf,
 )
@@ -448,8 +449,7 @@ def _work_contigs(cfg: PipelineConfig, available: list[str]) -> list[str]:
     return out
 
 
-def _sv_protect_intervals(cfg: PipelineConfig, st: PipelineState, contig: str,
-                          cr=None):
+def _sv_protect_intervals(cfg: PipelineConfig, st: PipelineState, cr):
     """Support-read span table of the contig's candidate SV calls (the ones
     that will reach the decision stage): weak-junction splitting must not
     cut a phase set inside these spans, or the call lands in the
@@ -457,9 +457,8 @@ def _sv_protect_intervals(cfg: PipelineConfig, st: PipelineState, contig: str,
     (VERDICT r3 weak #5; reference semantics sv_phasing_fn.py:86-105)."""
     from duet_tpu_torch.models.snp_phaser_host import support_read_intervals
 
-    cr = cr if cr is not None else st.store.contigs.get(contig)
-    calls = st.sv_calls.get(contig)
-    if not calls or cr is None:
+    calls = st.sv_calls.get(cr.contig)
+    if not calls:
         return None
     names: set[str] = set()
     for c in calls:
@@ -565,12 +564,34 @@ def _ingest(cfg: PipelineConfig,
         return load_read_store(cfg.bam, only_contigs=only_contigs), "python"
 
 
+# the stage artifacts, under OUTPUT/
+_PILEUP_VCF = os.path.join("snp_calling", "pileup.vcf.gz")
+_SV_VCF = os.path.join("sv_calling", "variants.vcf")
+
+
+def _write_snp_artifact(cfg: PipelineConfig, snps: dict[str, ContigSnps],
+                        lengths: dict[str, int]) -> None:
+    """The SNP stage's artifact, _PILEUP_VCF, of the calls of every contig
+    (a batch run's, the part files' merged, or a streamed run's)."""
+    write_pileup_vcf(os.path.join(cfg.output, _PILEUP_VCF), snps, lengths,
+                     threads=_writer_threads(cfg))
+
+
+def _write_sv_artifact(cfg: PipelineConfig, calls: dict[str, list],
+                       evidence: dict, lengths: dict[str, int]) -> int:
+    """The SV stage's artifact, _SV_VCF: the calls of every contig and the
+    breakend pairs clustered over all contigs' breakend evidence at once
+    (a junction may pair two contigs).  Returns the number of pairs."""
+    bnds = call_bnds(evidence, cfg.sv_cfg())
+    write_sv_vcf(os.path.join(cfg.output, _SV_VCF), calls, lengths,
+                 family=cfg.sv_caller, bnds=bnds)
+    return len(bnds)
+
 
 def stage_snp_calling(cfg: PipelineConfig, st: PipelineState) -> None:
     """Mirrors ``duet_tpu.pipeline.stage_snp_calling``."""
-    out_dir = os.path.join(cfg.output, "snp_calling")
-    os.makedirs(out_dir, exist_ok=True)
-    artifact = os.path.join(out_dir, "pileup.vcf.gz")
+    os.makedirs(os.path.join(cfg.output, "snp_calling"), exist_ok=True)
+    artifact = os.path.join(cfg.output, _PILEUP_VCF)
     if cfg.resume and os.path.exists(artifact):
         get_logger().info("resume: loading %s", artifact)
         st.snps = read_pileup_vcf(artifact)
@@ -593,17 +614,15 @@ def stage_snp_calling(cfg: PipelineConfig, st: PipelineState) -> None:
         # by process 0 at the final stage
         _dump_part(cfg, "snp", pid, (st.snps, st.store.contig_lengths))
     else:
-        write_pileup_vcf(artifact, st.snps, st.store.contig_lengths,
-                         threads=_writer_threads(cfg))
+        _write_snp_artifact(cfg, st.snps, st.store.contig_lengths)
     n = sum(len(s.pos) for s in st.snps.values())
     get_logger().info("called %d SNP sites over %d contigs", n, len(st.snps))
 
 
 def stage_sv_calling(cfg: PipelineConfig, st: PipelineState) -> None:
     """Mirrors ``duet_tpu.pipeline.stage_sv_calling``."""
-    out_dir = os.path.join(cfg.output, "sv_calling")
-    os.makedirs(out_dir, exist_ok=True)
-    artifact = os.path.join(out_dir, "variants.vcf")
+    os.makedirs(os.path.join(cfg.output, "sv_calling"), exist_ok=True)
+    artifact = os.path.join(cfg.output, _SV_VCF)
     if cfg.resume and os.path.exists(artifact):
         get_logger().info("resume: keeping %s", artifact)
         return
@@ -627,6 +646,7 @@ def stage_sv_calling(cfg: PipelineConfig, st: PipelineState) -> None:
     calls = {c: r[0] for c, r in results}
     evidence = {c: r[1] for c, r in results}
     st.sv_calls = calls  # the phasing stage protects their support spans
+    n = sum(len(v) for v in calls.values())
     pid, nproc = _proc(cfg)
     if nproc > 1:
         # per-contig calls + breakend evidence travel as a part-file:
@@ -634,16 +654,44 @@ def stage_sv_calling(cfg: PipelineConfig, st: PipelineState) -> None:
         # so clustering runs globally on process 0 over the merged evidence
         _dump_part(cfg, "sv", pid,
                    (calls, evidence, st.store.contig_lengths))
-        n = sum(len(v) for v in calls.values())
         get_logger().info("clustered %d SV candidates (part %d/%d)",
                           n, pid, nproc)
         return
-    bnds = call_bnds(evidence, sv_cfg)
-    write_sv_vcf(artifact, calls, st.store.contig_lengths,
-                 family=cfg.sv_caller, bnds=bnds)
-    n = sum(len(v) for v in calls.values())
+    n_bnds = _write_sv_artifact(cfg, calls, evidence,
+                                st.store.contig_lengths)
     get_logger().info("clustered %d SV candidates + %d breakend pairs",
-                      n, len(bnds))
+                      n, n_bnds)
+
+
+def _phase_kwargs(cfg: PipelineConfig, st: PipelineState, cr,
+                  obs) -> dict:
+    """The keyword arguments of ``phase_contig`` and ``phase_contig_core``
+    for the contig `cr` with its at-site observations `obs`, from the
+    flags and from the run's SV calls.  Under a mesh, which is an opt-in
+    (duet_tpu's), phasing uses the device kernels whenever they are
+    allowed (not under --host-kernel)."""
+    use_device = cfg.use_device_kernel if st.mesh is not None \
+        else cfg.stages_on_device()
+    return dict(use_device=use_device, obs=obs,
+                min_junction_evidence=cfg.min_junction_evidence,
+                device_min_nnz=cfg.phasing_device_min_nnz(),
+                adaptive_junction_split=cfg.adaptive_junction_split,
+                protect_intervals=_sv_protect_intervals(cfg, st, cr),
+                device=cfg.torch_device())
+
+
+def _write_phased(cfg: PipelineConfig, st: PipelineState, cr,
+                  snps: ContigSnps, result: PhaseResult) -> None:
+    """A phased contig's outputs: its read-hap map in st.read_haps, and in
+    snp_phasing/ its phased SNP VCF and its haplotag table."""
+    out_dir = os.path.join(cfg.output, "snp_phasing")
+    st.read_haps[cr.contig] = read_hap_map(cr, result)
+    write_phased_snp_vcf(
+        os.path.join(out_dir, f"phased_{cr.contig}.vcf.gz"), cr.contig,
+        snps, result, threads=_writer_threads(cfg))
+    _write_haplotag_table(
+        os.path.join(out_dir, f"{cr.contig}.haplotags.tsv"),
+        st.read_haps[cr.contig])
 
 
 def stage_snp_phasing(cfg: PipelineConfig, st: PipelineState) -> None:
@@ -657,7 +705,7 @@ def stage_snp_phasing(cfg: PipelineConfig, st: PipelineState) -> None:
     if cfg.resume and not st.sv_calls:
         # resumed run: the calls the protection intervals need live only in
         # the artifact; parse it once, keyed by the store's contig spellings
-        variants = os.path.join(cfg.output, "sv_calling", "variants.vcf")
+        variants = os.path.join(cfg.output, _SV_VCF)
         if os.path.exists(variants):
             parsed = parse_sv_vcf(variants, True)
             for c in st.store.contigs:
@@ -665,33 +713,20 @@ def stage_snp_phasing(cfg: PipelineConfig, st: PipelineState) -> None:
                     if key in parsed:
                         st.sv_calls[c] = parsed[key]
                         break
-    dev = cfg.torch_device()
-    use_device = cfg.stages_on_device()
-    min_nnz = cfg.phasing_device_min_nnz()
-    work = [(c, s) for c, s in st.snps.items() if c in st.store.contigs]
+    work = [(st.store.contigs[c], s) for c, s in st.snps.items()
+            if c in st.store.contigs]
     if st.mesh is not None:
-        # per contig on the mesh, which runs whenever the device kernels
-        # are allowed (duet_tpu's opt-in; --host-kernel keeps the host)
         scored = {
-            c: phase_contig(st.store.contigs[c], s, cfg.snp_cfg(),
-                            use_device=cfg.use_device_kernel,
-                            obs=st.site_obs.get(c), mesh=st.mesh,
-                            min_junction_evidence=cfg.min_junction_evidence,
-                            device_min_nnz=min_nnz,
-                            adaptive_junction_split=cfg.adaptive_junction_split,
-                            protect_intervals=_sv_protect_intervals(cfg, st, c))
-            for c, s in work}
+            cr.contig: phase_contig(
+                cr, s, cfg.snp_cfg(), mesh=st.mesh, mode=cfg.haplotag_mode(),
+                **_phase_kwargs(cfg, st, cr, st.site_obs.get(cr.contig)))
+            for cr, s in work}
     else:
         def core(item):
-            contig, snps = item
-            return contig, phase_contig_core(
-                st.store.contigs[contig], snps, cfg.snp_cfg(),
-                use_device=use_device, obs=st.site_obs.get(contig),
-                min_junction_evidence=cfg.min_junction_evidence,
-                device_min_nnz=min_nnz,
-                adaptive_junction_split=cfg.adaptive_junction_split,
-                protect_intervals=_sv_protect_intervals(cfg, st, contig),
-                device=dev)
+            cr, snps = item
+            return cr.contig, phase_contig_core(
+                cr, snps, cfg.snp_cfg(),
+                **_phase_kwargs(cfg, st, cr, st.site_obs.get(cr.contig)))
 
         with span("snp_phasing.refine"):
             if cfg.threads > 1 and len(work) > 1:
@@ -700,28 +735,23 @@ def stage_snp_phasing(cfg: PipelineConfig, st: PipelineState) -> None:
             else:
                 cores = dict(map(core, work))
         with span("snp_phasing.score"):
-            scored = score_contigs_batched(cores, use_device, min_nnz, dev,
-                                           mode=cfg.haplotag_mode())
-    for contig, snps in work:
-        cr = st.store.contigs[contig]
-        result = scored[contig]
-        st.phase_results[contig] = result
-        st.read_haps[contig] = read_hap_map(cr, result)
-        write_phased_snp_vcf(
-            os.path.join(out_dir, f"phased_{contig}.vcf.gz"), contig, snps,
-            result, threads=_writer_threads(cfg))
-        _write_haplotag_table(
-            os.path.join(out_dir, f"{contig}.haplotags.tsv"),
-            st.read_haps[contig])
+            scored = score_contigs_batched(
+                cores, cfg.stages_on_device(),
+                cfg.phasing_device_min_nnz(), cfg.torch_device(),
+                mode=cfg.haplotag_mode())
+    for cr, snps in work:
+        result = scored[cr.contig]
+        st.phase_results[cr.contig] = result
+        _write_phased(cfg, st, cr, snps, result)
         if cfg.haplotag_bam:
             _write_haplotag_bam(
-                os.path.join(out_dir, f"{contig}.bam"), cr,
-                st.read_haps[contig], st.store.contig_lengths,
+                os.path.join(out_dir, f"{cr.contig}.bam"), cr,
+                st.read_haps[cr.contig], st.store.contig_lengths,
                 threads=_writer_threads(cfg))
         n_reads = len(result.row_names) if result.row_names else cr.n
         get_logger().info(
             "[PHASING] %s: %d het sites, %d blocks, %d/%d reads tagged",
-            contig, len(result.site_pos), len(result.block_ps),
+            cr.contig, len(result.site_pos), len(result.block_ps),
             int((result.read_hap != 0).sum()), n_reads)
 
 
@@ -747,9 +777,7 @@ def _merge_parts_and_write(cfg: PipelineConfig, nproc: int) -> None:
     for part_snps, part_lengths in _load_parts(cfg, "snp", nproc):
         snps.update(part_snps)
         lengths.update(part_lengths)
-    snps = _bam_order(cfg, snps)
-    write_pileup_vcf(os.path.join(cfg.output, "snp_calling", "pileup.vcf.gz"),
-                     snps, lengths, threads=_writer_threads(cfg))
+    _write_snp_artifact(cfg, _bam_order(cfg, snps), lengths)
 
     calls: dict = {}
     evidence: dict = {}
@@ -757,13 +785,11 @@ def _merge_parts_and_write(cfg: PipelineConfig, nproc: int) -> None:
         calls.update(part_calls)
         evidence.update(part_ev)
         lengths.update(part_lengths)
-    calls = _bam_order(cfg, calls)
-    bnds = call_bnds(evidence, cfg.sv_cfg())
-    write_sv_vcf(os.path.join(cfg.output, "sv_calling", "variants.vcf"),
-                 calls, lengths, family=cfg.sv_caller, bnds=bnds)
+    n_bnds = _write_sv_artifact(cfg, _bam_order(cfg, calls), evidence,
+                                lengths)
     get_logger().info(
         "merged %d part(s): %d contigs, %d breakend pairs", nproc,
-        len(calls), len(bnds),
+        len(calls), n_bnds,
     )
 
 
@@ -776,7 +802,7 @@ def _sv_phasing_inputs(cfg: PipelineConfig, st: PipelineState,
     # the reference's `tabix --list-chroms` on pileup.vcf.gz
     chrom_list = None
     if cfg.include_all_ctgs:
-        pileup = os.path.join(cfg.output, "snp_calling", "pileup.vcf.gz")
+        pileup = os.path.join(cfg.output, _PILEUP_VCF)
         if os.path.exists(pileup):
             from duet_tpu_torch.io.vcf import list_chroms
 
@@ -811,7 +837,7 @@ def stage_sv_phasing(cfg: PipelineConfig, st: PipelineState) -> None:
         if pid != 0:
             return  # single-writer emission on process 0 (SURVEY.md §5.8)
         _merge_parts_and_write(cfg, nproc)
-    variants = os.path.join(cfg.output, "sv_calling", "variants.vcf")
+    variants = os.path.join(cfg.output, _SV_VCF)
     artifact = os.path.join(cfg.output, "phased_sv.vcf")
     if not os.path.exists(variants):
         raise FileNotFoundError(f"sv_calling artifact missing: {variants}")
@@ -839,28 +865,78 @@ STAGES = (
 STAGE_KEYS = ("ingest",) + tuple(stage_key(name) for name, _ in STAGES)
 
 
-def _stage_seconds(snap: dict) -> dict[str, float]:
-    return {k: round(snap["spans"].get(k, {}).get("s", 0.0), 4)
-            for k in STAGE_KEYS}
+def _open_log(cfg: PipelineConfig, pid: int = 0) -> None:
+    """OUTPUT/ and the run's log in it (run_duet.p{pid}.log on process
+    pid > 0)."""
+    os.makedirs(cfg.output, exist_ok=True)
+    setup_logging(cfg.output, file_name="run_duet.log" if pid == 0
+                  else f"run_duet.p{pid}.log")
 
 
-def _native_stats(block: dict, backend: str) -> None:
-    """Put the native decode's cost split into an ingest block."""
-    if backend == "native":
+def _open_run(cfg: PipelineConfig, pid: int = 0, nproc: int = 1
+              ) -> tuple[PipelineState, Future | None, float]:
+    """A run's prologue: the log (``_open_log``), a fresh span registry,
+    the run state with its mesh, and the card started beside ingest
+    (``_start_card``).  Returns (state, card, start time)."""
+    _open_log(cfg, pid)
+    if nproc > 1:
+        get_logger().info("multi-process run: process %d of %d", pid, nproc)
+    t0 = time.time()
+    spans.reset()
+    st = PipelineState()
+    st.mesh = _resolve_mesh(cfg)
+    return st, _start_card(cfg), t0
+
+
+def _close_run(card: Future | None, t0: float) -> float:
+    """A run's end: join the card's start (raising its error); returns
+    the run's seconds."""
+    if card is not None:
+        card.result()
+    return round(time.time() - t0, 4)
+
+
+def _write_metrics(cfg: PipelineConfig, st: PipelineState, total: float,
+                   metrics: dict, pid: int = 0) -> None:
+    """Write OUTPUT/metrics.json (metrics.p{pid}.json on process pid > 0):
+    the entry's own keys in `metrics`, with the ingest backend in its
+    "ingest" and the reads and contigs in its "counts", and the blocks
+    every entry writes."""
+    # labels reflect what actually ran (invocation counts), not the flags
+    snap = dispatch.snapshot()
+    traced = spans.snapshot()
+    if metrics["ingest"]["backend"] == "native":
         from duet_tpu_torch.io.native_ingest import decode_stats
 
         native = decode_stats()
         if native is not None:
-            block["native"] = native
-
-
-def _device_info(dev: torch.device) -> dict:
-    """metrics.json's "device": the device the run was configured for."""
-    return {
-        "type": dev.type,
-        "name": torch.cuda.get_device_name(dev)
-        if dev.type == "cuda" and torch.cuda.is_available() else None,
-    }
+            metrics["ingest"]["native"] = native
+    metrics["counts"]["snp_sites"] = sum(len(s.pos) for s in st.snps.values())
+    metrics["counts"]["tagged_reads"] = sum(
+        len(m) for m in st.read_haps.values())
+    dev = cfg.torch_device()
+    metrics.update({
+        "backends": {s: dispatch.backend_label(s, snap)
+                     for s in dispatch.STAGES},
+        "device_dispatch": snap,
+        "device_cost": devcost.snapshot(),
+        # the device the run was configured for
+        "device": {
+            "type": dev.type,
+            "name": torch.cuda.get_device_name(dev)
+            if dev.type == "cuda" and torch.cuda.is_available() else None,
+        },
+        "stages": {k: round(traced["spans"].get(k, {}).get("s", 0.0), 4)
+                   for k in STAGE_KEYS},
+        "total_s": total,
+        "peak_rss_mb": _peak_rss_mb(),
+        **spans.rounded(traced),
+    })
+    if cfg.device_stages == "auto":
+        metrics["device_size_gates"] = cfg.device_size_gates()
+    name = "metrics.json" if pid == 0 else f"metrics.p{pid}.json"
+    with open(os.path.join(cfg.output, name), "w") as f:
+        json.dump(metrics, f, indent=2)
 
 
 def run_pipeline_streaming(cfg: PipelineConfig) -> str:
@@ -880,31 +956,17 @@ def run_pipeline_streaming(cfg: PipelineConfig) -> str:
         prefetch_iter,
         stream_contig_reads_auto,
     )
-    from duet_tpu_torch.models.snp_caller import (
-        _at_site_obs,
-        call_contig_snps,
-        mesh_pileup_ok,
-    )
 
     if (cfg.num_processes or 1) > 1:
         raise ValueError("--stream does not combine with multi-process runs; "
                          "use one mode or the other")
     dev = cfg.torch_device()
     check_envs(cfg)
-    os.makedirs(cfg.output, exist_ok=True)
-    setup_logging(cfg.output)
+    st, card, t0 = _open_run(cfg)
     log = get_logger()
-    t0 = time.time()
-    spans.reset()
-
-    st = PipelineState()
-    st.mesh = _resolve_mesh(cfg)
     st.ref = FastaFile(cfg.reference)
-    snp_dir = os.path.join(cfg.output, "snp_calling")
-    sv_dir = os.path.join(cfg.output, "sv_calling")
-    ph_dir = os.path.join(cfg.output, "snp_phasing")
-    for d in (snp_dir, sv_dir, ph_dir):
-        os.makedirs(d, exist_ok=True)
+    for d in ("snp_calling", "sv_calling", "snp_phasing"):
+        os.makedirs(os.path.join(cfg.output, d), exist_ok=True)
 
     aliases = {}
     for canonical in _work_contigs(cfg, st.ref.contig_names):
@@ -912,8 +974,6 @@ def run_pipeline_streaming(cfg: PipelineConfig) -> str:
         aliases[strip_chr(canonical)] = canonical
         aliases["chr" + strip_chr(canonical)] = canonical
 
-    snps_all: dict[str, ContigSnps] = {}
-    calls_all: dict[str, list] = {}
     bnd_evidence: dict = {}
     lengths: dict[str, int] = {}
     n_reads = 0
@@ -925,7 +985,6 @@ def run_pipeline_streaming(cfg: PipelineConfig) -> str:
     def _mark(stage: str) -> None:
         stage_rss[stage] = max(stage_rss[stage], _peak_rss_mb())
 
-    card = _start_card(cfg)
     stream, stream_backend = stream_contig_reads_auto(
         cfg.bam, n_threads=cfg.threads)
     # contig N+1 decodes on a background thread while the stages process
@@ -940,9 +999,6 @@ def run_pipeline_streaming(cfg: PipelineConfig) -> str:
         stream = prefetch_iter(stream, depth=1)
     log.info("streaming ingest backend: %s%s", stream_backend,
              " (prefetch depth 1)" if prefetch else "")
-    # the mesh is an opt-in: phasing runs on it unless --host-kernel
-    use_device = cfg.use_device_kernel if st.mesh is not None \
-        else cfg.stages_on_device()
     with StageTimer("STREAMING CONTIG PASS"):
         contigs = iter(stream)
         while True:
@@ -956,7 +1012,7 @@ def run_pipeline_streaming(cfg: PipelineConfig) -> str:
             if cr.contig not in aliases:
                 del cr
                 continue
-            if cr.contig in snps_all:
+            if cr.contig in st.snps:
                 # a repeated contig means the BAM is not coordinate-sorted;
                 # the first segment's results are already released, so
                 # keeping the last would drop reads
@@ -974,99 +1030,50 @@ def run_pipeline_streaming(cfg: PipelineConfig) -> str:
                 codes = st.ref.fetch_codes(fa_name)
             _mark("ingest")
             with span("snp_calling"):
-                snp_cfg = cfg.snp_cfg(len(cr.seq), stream=True)
-                if st.mesh is not None and mesh_pileup_ok(snp_cfg):
-                    from duet_tpu_torch.parallel.shard_pileup import (
-                        call_snps_sharded,
-                    )
-
-                    snps = call_snps_sharded(st.mesh, cr.contig, cr, codes,
-                                             snp_cfg)
-                    site_obs = _at_site_obs(cr, snp_cfg, snps.pos)
-                else:
-                    snps, site_obs = call_contig_snps(cr.contig, cr, codes,
-                                                      snp_cfg, dev,
-                                                      cfg.nn_device())
-                snps_all[cr.contig] = snps
+                snps, site_obs = call_snps_for_contig(
+                    cr.contig, cr, codes,
+                    cfg.snp_cfg(len(cr.seq), stream=True), dev,
+                    cfg.nn_device(), st.mesh)
+                st.snps[cr.contig] = snps
             _mark("snp_calling")
             # cross-contig breakend evidence survives the contig's release
             with span("sv_calling"), span("sv_calling.contigs"):
-                calls_all[cr.contig], bnd_evidence[cr.contig] = \
+                st.sv_calls[cr.contig], bnd_evidence[cr.contig] = \
                     call_contig_with_evidence(cr, cfg.sv_cfg(), device=dev,
                                               mesh=st.mesh)
-                st.sv_calls[cr.contig] = calls_all[cr.contig]
             _mark("sv_calling")
             with span("snp_phasing"):
                 result = phase_contig(
-                    cr, snps, cfg.snp_cfg(), use_device=use_device,
-                    obs=site_obs,
-                    min_junction_evidence=cfg.min_junction_evidence,
-                    mesh=st.mesh,
-                    device_min_nnz=cfg.phasing_device_min_nnz(),
-                    adaptive_junction_split=cfg.adaptive_junction_split,
-                    protect_intervals=_sv_protect_intervals(cfg, st,
-                                                            cr.contig, cr=cr),
-                    device=dev, mode=cfg.haplotag_mode())
-                st.read_haps[cr.contig] = read_hap_map(cr, result)
-                write_phased_snp_vcf(
-                    os.path.join(ph_dir, f"phased_{cr.contig}.vcf.gz"),
-                    cr.contig, snps, result, threads=_writer_threads(cfg))
-                _write_haplotag_table(
-                    os.path.join(ph_dir, f"{cr.contig}.haplotags.tsv"),
-                    st.read_haps[cr.contig])
+                    cr, snps, cfg.snp_cfg(), mesh=st.mesh,
+                    mode=cfg.haplotag_mode(),
+                    **_phase_kwargs(cfg, st, cr, site_obs))
+                _write_phased(cfg, st, cr, snps, result)
             _mark("snp_phasing")
             log.info("[STREAM] %s: %d reads, %d SNPs, %d SV candidates, "
                      "%d blocks", cr.contig, cr.n, len(snps.pos),
-                     len(calls_all[cr.contig]), len(result.block_ps))
+                     len(st.sv_calls[cr.contig]), len(result.block_ps))
             st.ref.drop_cache(fa_name)
             # drop this contig before the next one decodes beside it
             del cr, codes, site_obs, result
-    write_pileup_vcf(os.path.join(snp_dir, "pileup.vcf.gz"), snps_all, lengths,
-                     threads=_writer_threads(cfg))
-    write_sv_vcf(os.path.join(sv_dir, "variants.vcf"), calls_all, lengths,
-                 family=cfg.sv_caller,
-                 bnds=call_bnds(bnd_evidence, cfg.sv_cfg()))
-    st.snps = snps_all
+    _write_snp_artifact(cfg, st.snps, lengths)
+    _write_sv_artifact(cfg, st.sv_calls, bnd_evidence, lengths)
     with StageTimer("SV PHASING"):
         stage_sv_phasing(cfg, st)
     _mark("sv_phasing")
-    if card is not None:
-        card.result()
-    total = round(time.time() - t0, 4)
+    total = _close_run(card, t0)
     log.info("ALL STAGES COMPLETED IN %ss (streamed %d reads)", total, n_reads)
-    snap = dispatch.snapshot()
-    traced = spans.snapshot()
-    ingest_block: dict = {"backend": stream_backend}
-    _native_stats(ingest_block, stream_backend)
-    # auto's gates, as the batch run records them
-    gates = {"device_size_gates": cfg.device_size_gates()} \
-        if cfg.device_stages == "auto" else {}
-    with open(os.path.join(cfg.output, "metrics.json"), "w") as f:
-        json.dump({
-            "mode": "streaming",
-            **gates,
-            "ingest_backend": stream_backend,
-            "ingest": ingest_block,
-            "backends": {s: dispatch.backend_label(s, snap)
-                         for s in dispatch.STAGES},
-            "device_dispatch": snap,
-            "device_cost": devcost.snapshot(),
-            "device": _device_info(dev),
-            "stages": _stage_seconds(traced),
-            "stage_peak_rss_mb": {k: round(v, 1)
-                                  for k, v in stage_rss.items()},
-            "peak_rss_mb": _peak_rss_mb(),
-            "counts": {
-                "reads": n_reads,
-                "contigs": len(snps_all),
-                "snp_sites": sum(len(s.pos) for s in snps_all.values()),
-                "sv_candidates": sum(len(v) for v in calls_all.values()),
-                "tagged_reads": sum(len(m) for m in st.read_haps.values()),
-            },
-            "total_s": total,
-            "reads_per_s": round(n_reads / max(total, 1e-9), 1),
-            **spans.rounded(traced),
-        }, f, indent=2)
+    _write_metrics(cfg, st, total, {
+        "mode": "streaming",
+        "ingest_backend": stream_backend,
+        "ingest": {"backend": stream_backend},
+        "stage_peak_rss_mb": {k: round(v, 1) for k, v in stage_rss.items()},
+        "counts": {
+            "reads": n_reads,
+            "contigs": len(st.snps),
+            "sv_candidates": sum(len(v) for v in st.sv_calls.values()),
+        },
+        "reads_per_s": round(n_reads / max(total, 1e-9), 1),
+    })
     return os.path.join(cfg.output, "phased_sv.vcf")
 
 
@@ -1087,8 +1094,7 @@ def run_phase_only(cfg: PipelineConfig) -> str:
     users can re-phase their existing intermediates."""
     if (cfg.num_processes or 1) > 1:
         raise ValueError("--phase-only is a single-process mode")
-    os.makedirs(cfg.output, exist_ok=True)
-    setup_logging(cfg.output)
+    _open_log(cfg)
     st = PipelineState()
     with StageTimer("SV PHASING"):
         stage_sv_phasing(cfg, st)
@@ -1100,9 +1106,7 @@ def run_pipeline(cfg: PipelineConfig) -> str:
     ``duet_tpu.pipeline.run_pipeline`` (no compile cache); OUTPUT/
     metrics.json (metrics.p{pid}.json on process pid > 0) keeps its schema
     and adds the device the run was configured for."""
-    dev = cfg.torch_device()
     check_envs(cfg)
-    os.makedirs(cfg.output, exist_ok=True)
     if cfg.coordinator is not None:
         from duet_tpu_torch.parallel.distributed import init_distributed
 
@@ -1112,18 +1116,8 @@ def run_pipeline(cfg: PipelineConfig) -> str:
         raise ValueError("--resume does not combine with multi-process runs: "
                          "stage outputs live in part files, not the "
                          "single-process artifacts resume checks")
-    setup_logging(cfg.output, file_name="run_duet.log" if pid == 0
-                  else f"run_duet.p{pid}.log")
+    st, card, t0 = _open_run(cfg, pid, nproc)
     log = get_logger()
-    if nproc > 1:
-        log.info("multi-process run: process %d of %d", pid, nproc)
-
-    t0 = time.time()
-    spans.reset()
-    st = PipelineState()
-    st.mesh = _resolve_mesh(cfg)
-    card = _start_card(cfg)
-    metrics: dict = {"stages": {}, "counts": {}}
     with StageTimer("INGEST") as ingest:
         with span("ingest.fasta_index") as fasta:
             st.ref = FastaFile(cfg.reference)
@@ -1139,46 +1133,26 @@ def run_pipeline(cfg: PipelineConfig) -> str:
         with span("ingest.bam_decode") as bam:
             st.store, ingest_backend = _ingest(cfg, only_contigs=owned)
         n_reads = sum(c.n for c in st.store.contigs.values())
-        metrics["counts"]["reads"] = n_reads
-        metrics["counts"]["contigs"] = len(st.store.contigs)
-        metrics["ingest"] = {
+        log.info("ingested %d reads over %d contigs", n_reads,
+                 len(st.store.contigs))
+    metrics = {
+        "counts": {"reads": n_reads, "contigs": len(st.store.contigs)},
+        "ingest": {
             "backend": ingest_backend,
             "fasta_index_s": round(fasta.s, 4),
             "bam_decode_s": round(bam.s, 4),
             "bam_decode_reads_per_s": round(n_reads / max(bam.s, 1e-9), 1),
-        }
-        _native_stats(metrics["ingest"], ingest_backend)
-        log.info("ingested %d reads over %d contigs", n_reads,
-                 len(st.store.contigs))
-    metrics["ingest_reads_per_s"] = round(n_reads / max(ingest.s, 1e-9), 1)
+        },
+        "ingest_reads_per_s": round(n_reads / max(ingest.s, 1e-9), 1),
+    }
     for name, fn in STAGES:
         with StageTimer(name):
             fn(cfg, st)
-    # labels reflect what actually ran (invocation counts), not the flags
-    snap = dispatch.snapshot()
-    metrics["backends"] = {s: dispatch.backend_label(s, snap)
-                           for s in dispatch.STAGES}
-    metrics["device_dispatch"] = snap
-    metrics["device_cost"] = devcost.snapshot()
-    metrics["device"] = _device_info(dev)
     if st.mesh is not None:
         metrics["mesh"] = {"dp": int(st.mesh.shape["dp"]),
                            "sp": int(st.mesh.shape["sp"])}
-    if cfg.device_stages == "auto":
-        metrics["device_size_gates"] = cfg.device_size_gates()
-    metrics["counts"]["snp_sites"] = sum(len(s.pos) for s in st.snps.values())
-    metrics["counts"]["tagged_reads"] = sum(
-        len(m) for m in st.read_haps.values())
-    if card is not None:
-        card.result()
-    traced = spans.snapshot()
-    metrics["stages"] = _stage_seconds(traced)
-    metrics["total_s"] = round(time.time() - t0, 4)
-    metrics["peak_rss_mb"] = _peak_rss_mb()
-    metrics.update(spans.rounded(traced))
-    metrics_name = "metrics.json" if pid == 0 else f"metrics.p{pid}.json"
-    with open(os.path.join(cfg.output, metrics_name), "w") as f:
-        json.dump(metrics, f, indent=2)
-    log.info("ALL STAGES COMPLETED IN %ss", metrics["total_s"])
+    total = _close_run(card, t0)
+    _write_metrics(cfg, st, total, metrics, pid)
+    log.info("ALL STAGES COMPLETED IN %ss", total)
     log.info("OUTPUT: %s", os.path.join(cfg.output, "phased_sv.vcf"))
     return os.path.join(cfg.output, "phased_sv.vcf")

@@ -285,6 +285,48 @@ def _check_registry(m: dict, expected: set) -> None:
     assert m["device_dispatch"]["snp_pileup"]
 
 
+# each span's parent in a batch run of the counting rule, and where a
+# streamed run's differ: its contig pass holds the per-contig stages, and
+# the pileup and SV VCFs are written after it, outside every stage
+PARENTS = {
+    "ingest": None, "ingest.fasta_index": "ingest",
+    "ingest.bam_decode": "ingest",
+    "snp_calling": None, "snp_calling.counts": "snp_calling",
+    "snp_calling.count_rule": "snp_calling",
+    "snp_calling.at_site": "snp_calling",
+    "write.pileup_vcf": "snp_calling", "index.tabix": "write.pileup_vcf",
+    "sv_calling": None, "sv_calling.contigs": "sv_calling",
+    "sv_calling.bnds": "sv_calling", "write.sv_vcf": "sv_calling",
+    "snp_phasing": None, "snp_phasing.refine": "snp_phasing",
+    "snp_phasing.switch_correct": "snp_phasing.refine",
+    "snp_phasing.score": "snp_phasing",
+    "snp_phasing.read_haps": "snp_phasing",
+    "write.phased_snp_vcf": "snp_phasing",
+    "write.haplotag_table": "snp_phasing",
+    "sv_phasing": None, "sv_phasing.parse": "sv_phasing",
+    "sv_phasing.decide": "sv_phasing", "write.phased_sv_vcf": "sv_phasing",
+}
+STREAM_PARENTS = {
+    **{k: v for k, v in PARENTS.items() if k not in
+       ("ingest.fasta_index", "ingest.bam_decode")},
+    "streaming_contig_pass": None,
+    "ingest": "streaming_contig_pass",
+    "snp_calling": "streaming_contig_pass",
+    "sv_calling": "streaming_contig_pass",
+    "snp_phasing": "streaming_contig_pass",
+    "write.pileup_vcf": None, "write.sv_vcf": None, "sv_calling.bnds": None,
+    "index.tabix": "write.phased_snp_vcf",
+}
+# metrics.json's blocks in every run, and each entry's own keys
+METRICS_COMMON = {"ingest", "counts", "backends", "device_dispatch",
+                  "device_cost", "device", "device_size_gates", "stages",
+                  "total_s", "peak_rss_mb", "spans", "counters"}
+METRICS_OWN = {"batch": {"ingest_reads_per_s"},
+               "stream": {"mode", "ingest_backend", "stage_peak_rss_mb",
+                          "reads_per_s"}}
+COUNTS_OWN = {"batch": set(), "stream": {"sv_candidates"}}
+
+
 @pytest.mark.parametrize("mode", ["batch", "stream"])
 def test_run_writes_its_spans_and_counters(sim_dataset, tmp_path, mode):
     out = str(tmp_path / mode)
@@ -296,6 +338,11 @@ def test_run_writes_its_spans_and_counters(sim_dataset, tmp_path, mode):
     assert m["ingest"]["backend"] == "native"
     _check_registry(m, COMMON - {"ingest.fasta_index", "ingest.bam_decode"}
                     | COUNTING)
+    assert {name: e["parent"] for name, e in m["spans"].items()} == \
+        (PARENTS if mode == "batch" else STREAM_PARENTS)
+    assert set(m) == METRICS_COMMON | METRICS_OWN[mode]
+    assert set(m["counts"]) == {"reads", "contigs", "snp_sites",
+                                "tagged_reads"} | COUNTS_OWN[mode]
     if mode == "batch":
         assert m["spans"]["ingest.bam_decode"]["parent"] == "ingest"
         assert _same_seconds(m["ingest"]["bam_decode_s"],
