@@ -28,6 +28,15 @@ together).  Phases, each printing one line:
                 zlib inflate) built and loaded, the zlib it links, and the
                 smoke BAM decoded by it (decode stats) and equal to the
                 Python reader's store;
+  [bgzf inflate]  the BGZF inflate kernel (csrc/bgzf_inflate.cu) byte-
+                equal to zlib on members deflated at levels 0, 1, 6, 9 with
+                each zlib strategy (65,280-byte members, overlapping
+                matches, the empty EOF member), a flipped CRC32 bit and a
+                wrong ISIZE flagged; then both benchmark cells' inputs
+                (h100_bench.sim, fixed seeds): the kernel alone on each
+                BAM's members, its stream equal to zlib's, and native
+                ingest on the card route against the zlib pool, in turns,
+                the stores equal, with the inflate seconds of each;
   [pileup kernel]  the device pileup's two kernels (csrc/pileup.cu:
                 pileup_count, pileup_call) against their plain versions on
                 PILEUP_EDGE_CASES at 1 and 40 times their size and on the
@@ -44,7 +53,9 @@ together).  Phases, each printing one line:
   [pipeline on] the batch pipeline through the port's CLI with
                 --device-stages on (the device pileup on its kernels, the
                 dense scorer and its hand kernel), every stage on the
-                device and the ingest native;
+                device, the ingest native and its BGZF members inflated
+                by bgzf_inflate (the kernels line's launches of it are
+                this run's);
   [pipeline off]  the same CLI with --device-stages off: byte-identical;
   [pipeline auto]  --device-stages auto, the default, twice in turns
                 with off: byte-identical to off, its recorded gates the
@@ -647,7 +658,8 @@ def phase_card(report: dict) -> None:
     t = time.perf_counter()
     haplotag_kernel.build()
     wall = time.perf_counter() - t
-    libs = ("haplotag_score", "haplotag_sweep", "pileup", "snp_features")
+    libs = ("haplotag_score", "haplotag_sweep", "pileup", "snp_features",
+            "bgzf_inflate")
     builds = ", ".join(
         f"{n} {cuda_build.BUILD_INFO[n]['seconds']} s (fresh build: "
         f"{cuda_build.BUILD_INFO[n]['built']})" for n in libs)
@@ -1020,6 +1032,215 @@ def phase_ingest(report: dict, data: str) -> None:
           flush=True)
 
 
+# the BGZF inflate kernel's cases: each zlib level and strategy
+BGZF_LEVELS = (0, 1, 6, 9)
+BGZF_STRATEGIES = {"default": 0, "filtered": 1, "huffman_only": 2, "rle": 3,
+                   "fixed": 4}
+# the benchmark cells' configurations, simulated by h100_bench.sim
+BGZF_CELL_CONFIGS = {"q10-10x": "synth-ont-q10-10x",
+                     "q20-20x": "synth-ont-q20-20x"}
+
+
+def bgzf_member(data: bytes, level: int = 6, strategy: int = 0) -> bytes:
+    """One BGZF member of `data` (at most 65,536 bytes), deflated by zlib
+    at `level` with `strategy`, framed as the BAM writer frames it."""
+    import struct
+    import zlib
+
+    c = zlib.compressobj(level, zlib.DEFLATED, -15, 9, strategy)
+    raw = c.compress(data) + c.flush()
+    return (b"\x1f\x8b\x08\x04\0\0\0\0\0\xff\x06\0BC\x02\0" +
+            struct.pack("<H", 25 + len(raw)) + raw +
+            struct.pack("<II", zlib.crc32(data), len(data)))
+
+
+def bgzf_edge_members(level: int, strategy: int) -> list[tuple[str, bytes]]:
+    """Members at `level` and `strategy`: a BAM-like 65,280-byte block
+    (quality strings and bases), overlapping matches (runs of one and two
+    bytes, a three-byte period), random bytes, text and one byte; and the
+    empty EOF member."""
+    from duet_tpu_torch.io.bgzf import BGZF_EOF
+
+    rng = np.random.default_rng(1000 + 10 * level + strategy)
+    quals = (33 + np.clip(rng.normal(22, 8, 40_000), 0, 60)).astype(np.uint8)
+    bases = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 25_280)]
+    datas = {"bam_like_65280": quals.tobytes() + bases.tobytes(),
+             "overlap": b"ab" * 3000 + b"a" * 5000 + b"xyz" * 900,
+             "random": rng.bytes(4096),
+             "text": b"the quick brown fox jumps over the lazy dog " * 200,
+             "one": b"q"}
+    return [(name, bgzf_member(d, level, strategy))
+            for name, d in datas.items()] + [("eof", BGZF_EOF)]
+
+
+def bgzf_faults(member: bytes) -> dict[str, bytes]:
+    """`member` with a CRC32 bit flipped, its ISIZE one too many, and its
+    DEFLATE data cut to half (BSIZE true to the shorter member)."""
+    import struct
+
+    crc = bytearray(member)
+    crc[-8] ^= 0x01
+    isize = member[:-4] + struct.pack(
+        "<I", struct.unpack("<I", member[-4:])[0] + 1)
+    keep = (len(member) - 26) // 2
+    cut = bytearray(member[:18 + keep] + member[-8:])
+    cut[16:18] = struct.pack("<H", len(cut) - 1)
+    return {"crc32": bytes(crc), "isize": isize, "truncated": bytes(cut)}
+
+
+def bgzf_on_card(members: list[bytes]):
+    """The kernel on `members` concatenated: (out bytes, statuses), and
+    zlib's (the plain counterpart) for the same members."""
+    import torch
+
+    from duet_tpu_torch.ops.bgzf_inflate import inflate_members, member_table
+
+    buf = b"".join(members)
+    table = torch.from_numpy(member_table(buf))
+    comp = torch.frombuffer(bytearray(buf), dtype=torch.uint8)
+    out, status = inflate_members(comp.cuda(), table.cuda())
+    torch.cuda.synchronize()
+    want_out, want_status = inflate_members(comp, table)
+    return (out.cpu().numpy().tobytes(), status.cpu().tolist(),
+            want_out.numpy().tobytes(), want_status.tolist())
+
+
+def _sim_cell_inputs(work: str) -> dict:
+    """Each cell's input, seed 2147483701, written by h100_bench.sim in
+    processes of their own, at once."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = {}
+    for cell, config in BGZF_CELL_CONFIGS.items():
+        out = os.path.join(work, f"cell_{cell}")
+        procs[cell] = (out, subprocess.Popen(
+            [sys.executable, "-m", "h100_bench.sim",
+             os.path.join(here, "h100_bench", "configs", f"{config}.json"),
+             "2147483701", out], cwd=here))
+    for cell, (_, p) in procs.items():
+        if p.wait(timeout=600) != 0:
+            raise AssertionError(f"h100_bench.sim failed for {cell}")
+    return {cell: os.path.join(out, "reads.bam")
+            for cell, (out, _) in procs.items()}
+
+
+def _bgzf_kernel_ms(comp, rows) -> float:
+    """The kernel's launch alone on a whole BAM's members (buffers made
+    first), median of 10 after 3."""
+    import torch
+
+    from duet_tpu_torch.ops import bgzf_inflate
+
+    padded = torch.zeros(comp.numel() + 64, dtype=torch.uint8,
+                         device=comp.device)
+    padded[:comp.numel()] = comp
+    n = rows.shape[0]
+    out = torch.empty(int((rows[:, 2] + rows[:, 3]).max()),
+                      dtype=torch.uint8, device=comp.device)
+    status = torch.zeros(n + 1, dtype=torch.int32, device=comp.device)
+    stream = torch.cuda.current_stream(comp.device).cuda_stream
+    lib = bgzf_inflate._library()
+
+    def launch():
+        if lib.duet_bgzf_launch(padded.data_ptr(), rows.data_ptr(), n,
+                                out.data_ptr(), status.data_ptr(), stream):
+            raise AssertionError("bgzf_inflate launch failed")
+
+    return _median_ms(launch, reps=10)
+
+
+def phase_bgzf_inflate(report: dict, work: str) -> None:
+    """The BGZF inflate kernel against zlib on every level and strategy,
+    its checks on bad trailers, and both cells' inputs through the kernel
+    alone and through native ingest's card route against the zlib pool."""
+    import torch
+
+    from duet_tpu_torch.io import native_ingest
+    from duet_tpu_torch.io.bgzf import bgzf_decompress_file
+    from duet_tpu_torch.ops import bgzf_inflate
+    from duet_tpu_torch.utils import spans
+
+    t0 = time.perf_counter()
+    n_members = 0
+    for level in BGZF_LEVELS:
+        for sname, strategy in BGZF_STRATEGIES.items():
+            named = bgzf_edge_members(level, strategy)
+            out, status, want, want_status = bgzf_on_card(
+                [m for _, m in named])
+            if out != want or any(status) or any(want_status):
+                raise AssertionError(f"bgzf_inflate: level {level} {sname}: "
+                                     f"statuses {status}, zlib's "
+                                     f"{want_status}")
+            n_members += len(named)
+    good = bgzf_edge_members(6, 0)[0][1]
+    faults = {}
+    for fault, member in bgzf_faults(good).items():
+        _, status, _, want_status = bgzf_on_card([good, member, good])
+        faults[fault] = status[1]
+        if status[0] or status[2] or not status[1] or not want_status[1] or \
+                status[3] != status[1]:
+            raise AssertionError(f"bgzf_inflate: {fault}: statuses {status}, "
+                                 f"zlib's {want_status}")
+    if faults["crc32"] != 3 or faults["isize"] != 4:
+        raise AssertionError(f"bgzf_inflate: fault statuses {faults}")
+    dev = torch.device("cuda", 0)
+    cells = {}
+    for cell, bam in _sim_cell_inputs(work).items():
+        with open(bam, "rb") as f:
+            buf = f.read()
+        table = torch.from_numpy(bgzf_inflate.member_table(buf))
+        comp = torch.frombuffer(bytearray(buf), dtype=torch.uint8).to(dev)
+        rows = table.to(dev)
+        out, status = bgzf_inflate.inflate_members(comp, rows)
+        torch.cuda.synchronize()
+        if status.cpu().max().item() != 0 or \
+                out.cpu().numpy().tobytes() != bgzf_decompress_file(bam):
+            raise AssertionError(f"bgzf_inflate: {cell}: the stream differs "
+                                 "from zlib's")
+        kernel_ms = _bgzf_kernel_ms(comp, rows)
+        longest = int(table[:, 3].max())
+        routes: dict = {"host": [], "card": []}
+        stores = {}
+        for route in ("host", "card", "card", "host"):
+            spans.reset()
+            t = time.perf_counter()
+            stores[route] = native_ingest.load_read_store_native(
+                bam, n_threads=4,
+                inflate_device=dev if route == "card" else None)
+            wall = time.perf_counter() - t
+            stats = native_ingest.decode_stats()
+            routes[route].append({"decode_s": round(wall, 4),
+                                  "inflate_s": stats["inflate_s"]})
+        for c, cr in stores["host"].contigs.items():
+            got = stores["card"].contigs[c]
+            if got.names != cr.names or any(
+                    not np.array_equal(getattr(got, f), getattr(cr, f))
+                    for f in ("starts", "ends", "strand", "mapq", "supp",
+                              "cigar_off", "cigar_ops", "cigar_lens",
+                              "seq_off", "seq", "qual")):
+                raise AssertionError(f"bgzf_inflate: {cell}: the card "
+                                     f"route's store differs at {c}")
+        nbytes = len(buf) + int(table[:, 3].sum())
+        cells[cell] = {
+            "compressed_bytes": len(buf), "members": len(table),
+            "inflated_bytes": int(table[:, 3].sum()), "longest": longest,
+            "kernel_ms": kernel_ms,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "host_inflate_ms": 1e3 * float(np.median(
+                [r["inflate_s"] for r in routes["host"]])),
+            "card_inflate_ms": 1e3 * float(np.median(
+                [r["inflate_s"] for r in routes["card"]])),
+            "routes": routes}
+    q10 = cells["q10-10x"]
+    report["bgzf_inflate"] = {
+        "ms": q10["kernel_ms"], "plain_ms": q10["host_inflate_ms"],
+        "bound_ms": q10["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "max_abs_err": 0, "cells": cells}
+    print(f"[bgzf inflate] {n_members} members over levels {BGZF_LEVELS} x "
+          f"{list(BGZF_STRATEGIES)} byte-equal to zlib; fault statuses "
+          f"{json.dumps(faults)}; cells {json.dumps(cells)}; "
+          f"{time.perf_counter() - t0:.1f} s on {report['card']}", flush=True)
+
+
 # the first kernel pair's medians on the smoke's grouped window (a global
 # atomic a kept lane; the histogram read twice by the call), on an NVIDIA
 # H100 80GB HBM3 at 700 W (PERF.md section 6), printed beside this run's
@@ -1276,24 +1497,29 @@ def phase_snp_features(report: dict) -> None:
 def _reset_launches() -> None:
     import torch
 
-    from duet_tpu_torch.ops import haplotag_kernel, pileup_kernel, snp_features
+    from duet_tpu_torch.ops import (bgzf_inflate, haplotag_kernel,
+                                    pileup_kernel, snp_features)
 
     torch.cuda.synchronize()
     haplotag_kernel.reset_launches()
     pileup_kernel.reset_launches()
     snp_features.reset_launches()
+    bgzf_inflate.reset_launches()
 
 
 def _launches() -> dict:
     """Every kernel's launches since the last _reset_launches."""
-    from duet_tpu_torch.ops import haplotag_kernel, pileup_kernel, snp_features
+    from duet_tpu_torch.ops import (bgzf_inflate, haplotag_kernel,
+                                    pileup_kernel, snp_features)
 
     return {**haplotag_kernel.LAUNCHES, **pileup_kernel.LAUNCHES,
-            **snp_features.LAUNCHES}
+            **snp_features.LAUNCHES, **bgzf_inflate.launches()}
 
 
 def _all_on_device(metrics: dict, path: str) -> None:
-    wrong = {s: b for s, b in metrics["backends"].items() if b != "device"}
+    # the BGZF inflate's device route is the card's kernel
+    wrong = {s: b for s, b in metrics["backends"].items()
+             if b != ("card" if s == "ingest_inflate" else "device")}
     if wrong:
         raise AssertionError(f"{path}: stages not on the device: {wrong}")
 
@@ -1306,16 +1532,19 @@ def phase_pipeline_on(report: dict, data: str, work: str) -> None:
     counts = _launches()
     report["launches"] = counts["haplotag_score"]
     report["pileup_launches"] = {k: counts[k] for k in PILEUP_KERNELS}
+    report["bgzf_launches"] = counts["bgzf_inflate"]
     _all_on_device(metrics, "the pipeline")
     _require_launches(counts, ["haplotag_score"], "the pipeline (dense)")
     _require_launches(counts, PILEUP_KERNELS, "the pipeline")
+    _require_launches(counts, ["bgzf_inflate"], "the pipeline")
     if metrics["ingest"]["backend"] != "native":
         raise AssertionError(f"the pipeline ingested with "
                              f"{metrics['ingest']['backend']}, not native")
     report["pipeline_on"] = metrics
     print(f"[pipeline on] backends all device, haplotag_score launches "
           f"{report['launches']}, pileup kernel launches "
-          f"{json.dumps(report['pileup_launches'])}, "
+          f"{json.dumps(report['pileup_launches'])}, bgzf_inflate launches "
+          f"{report['bgzf_launches']}, "
           f"wall {report['pipeline_on_wall']:.2f} s, "
           f"ingest {metrics['ingest']['backend']}, "
           f"reads {metrics['counts']['reads']}, snp sites "
@@ -1409,6 +1638,8 @@ def _expected_auto_backends(report: dict, work: str, gates: dict) -> dict:
                                    gates["phasing_min_nnz"]) else "host",
         "sv_decide": "device" if on(calls, gates["decide_min_calls"])
         else "host",
+        # the card inflates whenever the stages run on one
+        "ingest_inflate": "card",
     }
 
 
@@ -1445,6 +1676,7 @@ def phase_pipeline_auto(report: dict, data: str, work: str) -> None:
             _require_launches(counts, ["haplotag_score"], "the auto pipeline")
         elif counts["haplotag_score"]:
             raise AssertionError("the sparse scorer launched a dense kernel")
+        _require_launches(counts, ["bgzf_inflate"], "the auto pipeline")
         # the pileup gates route the counting rule only
         if counts["pileup_count"] or counts["pileup_call"]:
             raise AssertionError(f"auto launched the pileup kernels under "
@@ -1637,6 +1869,7 @@ def phase_stream(report: dict, data: str, work: str) -> None:
     counts = _launches()
     _require_launches(counts, ["haplotag_score"], "the streaming pipeline")
     _require_launches(counts, PILEUP_KERNELS, "the streaming pipeline")
+    _require_launches(counts, ["bgzf_inflate"], "the streaming pipeline")
     if metrics["ingest_backend"] != "native":
         raise AssertionError(f"--stream ingested with "
                              f"{metrics['ingest_backend']}, not native")
@@ -2103,10 +2336,13 @@ def phase_profile(report: dict, data: str, work: str) -> None:
 _CLI_WITH_LAUNCHES = (
     "import json, sys\n"
     "from duet_tpu_torch.cli import main\n"
-    "from duet_tpu_torch.ops import haplotag_kernel, pileup_kernel\n"
+    "from duet_tpu_torch.ops import bgzf_inflate, haplotag_kernel, "
+    "pileup_kernel\n"
     "rc = main(sys.argv[1:])\n"
     "print('LAUNCHES ' + json.dumps({**haplotag_kernel.LAUNCHES,\n"
-    "                                **pileup_kernel.LAUNCHES}), flush=True)\n"
+    "                                **pileup_kernel.LAUNCHES,\n"
+    "                                **bgzf_inflate.launches()}), "
+    "flush=True)\n"
     "sys.exit(rc)\n")
 
 
@@ -2146,9 +2382,11 @@ def phase_multiprocess(report: dict, data: str, work: str) -> None:
         counts = json.loads(line[-1].split(" ", 1)[1])
         _require_launches(counts, ["haplotag_score"], f"process {pid}")
         _require_launches(counts, PILEUP_KERNELS, f"process {pid}")
+        _require_launches(counts, ["bgzf_inflate"], f"process {pid}")
         launches.append({k: counts[k] for k in ("haplotag_score",
                                                 "pileup_count",
-                                                "pileup_call")})
+                                                "pileup_call",
+                                                "bgzf_inflate")})
     for name in ("snp_calling/pileup.vcf.gz", "sv_calling/variants.vcf",
                  "phased_sv.vcf"):
         if _read(os.path.join(out, name)) != \
@@ -2484,6 +2722,9 @@ KERNELS = [
     ("snp_features", "duet_tpu_torch/csrc/snp_features.cu",
      "none (numpy: duet_tpu/models/nn_snp.py candidate_sites + "
      "extract_features)", "snp_features"),
+    ("bgzf_inflate", "duet_tpu_torch/csrc/bgzf_inflate.cu",
+     "none (host zlib or libdeflate: native/duet_ingest.cc refill)",
+     "bgzf_inflate"),
 ]
 
 
@@ -2506,6 +2747,7 @@ def main() -> int:
         phase_nn(report)
         data = phase_simulate(report, work)
         phase_ingest(report, data)
+        phase_bgzf_inflate(report, work)
         phase_pileup_kernel(report, data)
         phase_snp_features(report)
         phase_pipeline_on(report, data, work)
@@ -2539,7 +2781,8 @@ def main() -> int:
                 "haplotag_score_shared":
                     report["bench_launches"]["haplotag_score_shared"],
                 **report["pileup_launches"],
-                "snp_features": report["snp_feature_launches"]}
+                "snp_features": report["snp_feature_launches"],
+                "bgzf_inflate": report["bgzf_launches"]}
     print(f"[wall] every phase in {time.perf_counter() - t0:.1f} s",
           flush=True)
     print(report["card"])

@@ -27,6 +27,9 @@
 //   duet_bam_open / duet_bam_error / duet_bam_close
 //   duet_bam_n_refs / duet_bam_ref_name / duet_bam_ref_length
 //   duet_bam_set_filter(refs, n)      — decode only these ref ids
+//   duet_bam_set_inflater(fn, ctx, …) — inflate the BGZF members through
+//                                       `fn` (the card) in batches, not
+//                                       the zlib pool
 //   duet_bam_next_contig()            — >=0 ref id, -1 EOF, -2 error
 //   duet_bam_n_reads / duet_bam_ragged_sizes / duet_bam_fill
 //     — accessors for the CURRENT contig's columns
@@ -61,6 +64,17 @@
 namespace {
 
 constexpr size_t kReadChunk = 4u << 20;  // compressed bytes per file read
+
+// An inflater that decodes whole batches of members (duet_bam_set_inflater;
+// the card's is ops/bgzf_inflate.py's duet_bgzf_inflate).  op 0 adds n
+// members of `comp` to the batch, table rows (in_off, in_size, out_off,
+// out_size) with in_off from comp and out_off from the batch's output;
+// `comp` may move once it returns.  op 1 decodes the batch and writes its
+// out_bytes inflated bytes to `out`.  Returns 0, 1 when a member failed
+// its decode or its gzip trailer, else a device error.
+typedef int (*InflateFn)(void* ctx, int op, const uint8_t* comp,
+                         const int64_t* table, int64_t n, uint8_t* out,
+                         int64_t out_bytes);
 // skip unmapped + secondary; KEEP supplementary (0x800)
 constexpr uint16_t kSkipFlags = 0x4 | 0x100;
 
@@ -184,6 +198,13 @@ struct Reader {
   // filter: want[ref_id] != 0 -> keep; empty -> keep all
   std::vector<uint8_t> want;
 
+  // the batch inflater, when set, its batch capacity, and what the batch
+  // in the making holds
+  InflateFn inflater = nullptr;
+  void* inflater_ctx = nullptr;
+  size_t batch_in = 0, batch_out = 0, batch_members = 0;
+  size_t added_in = 0, added_out = 0, added_members = 0;
+
   // compaction thresholds (bytes); tests shrink them to exercise the
   // rolling-buffer rebase logic on small inputs
   size_t comp_compact = 8u << 20;
@@ -221,13 +242,14 @@ struct Reader {
 // against CRC32 and the output length against ISIZE (Z_DATA_ERROR on
 // either), so a member ends in Z_STREAM_END only when both match; the
 // output must also fill dst exactly.
+// An empty member (the EOF marker) is checked too, into a dummy byte.
 bool inflate_block(z_stream* zs, const uint8_t* src, size_t src_size,
                    uint8_t* dst, size_t dst_size) {
-  if (dst_size == 0) return true;
+  uint8_t none;
   if (inflateReset(zs) != Z_OK) return false;
   zs->next_in = const_cast<Bytef*>(src);
   zs->avail_in = static_cast<uInt>(src_size);
-  zs->next_out = dst;
+  zs->next_out = dst_size ? dst : &none;
   zs->avail_out = static_cast<uInt>(dst_size);
   int rc = inflate(zs, Z_FINISH);
   return rc == Z_STREAM_END && zs->total_out == dst_size;
@@ -263,9 +285,94 @@ bool member_at(const Buf& buf, size_t off, uint32_t* bsize,
   return true;
 }
 
+// The inflater's route (duet_bam_set_inflater), refill's steps on it.
+// Whether a member of in_size/out_size bytes, after n members that span
+// in_bytes and out_bytes, overfills the inflater's batch (never without
+// an inflater, or before the header is parsed: the pool inflates that).
+bool batch_full(const Reader* rd, size_t n, size_t in_bytes,
+                size_t out_bytes) {
+  if (!rd->inflater || !rd->header_done) return false;
+  return rd->added_members + n >= rd->batch_members ||
+         rd->added_in + in_bytes > rd->batch_in ||
+         rd->added_out + out_bytes > rd->batch_out;
+}
+
+// What refill does after a step on the inflater's route.
+enum BatchStep { kBatchFailed, kBatchOut, kBatchCollect, kBatchRead };
+
+// The members refill just collected (comp[comp_head, off)) join the
+// inflater's batch, copied out as each read arrives so that the
+// compressed window stays as small as the pool's; the batch decodes into
+// the end of raw once the next member no longer fits or the file ends.
+template <class M>
+BatchStep batch_step(Reader* rd, const std::vector<M>& members, size_t off,
+                     size_t out_base) {
+  const double t0 = now_s();
+  if (!members.empty()) {
+    std::vector<int64_t> table;
+    table.reserve(4 * members.size());
+    int64_t out = static_cast<int64_t>(rd->added_out);
+    for (const auto& m : members) {
+      table.push_back(static_cast<int64_t>(m.in_off - rd->comp_head));
+      table.push_back(static_cast<int64_t>(m.in_size));
+      table.push_back(out);
+      table.push_back(static_cast<int64_t>(m.out_size));
+      out += static_cast<int64_t>(m.out_size);
+    }
+    int rc = rd->inflater(rd->inflater_ctx, 0,
+                          rd->comp.data() + rd->comp_head, table.data(),
+                          static_cast<int64_t>(members.size()), nullptr, 0);
+    if (rc != 0) {
+      rd->error = "BGZF inflate on the card failed";
+      return kBatchFailed;
+    }
+    rd->added_members += members.size();
+    rd->added_in += off - rd->comp_head;
+    rd->added_out = static_cast<size_t>(out);
+    rd->comp_head = off;
+  }
+  uint32_t bsize = 0, isize = 0;
+  bool valid = true;
+  const bool full = member_at(rd->comp, off, &bsize, &isize, &valid);
+  if (!rd->added_members || !(full || (rd->file_eof && members.empty()))) {
+    rd->t_inflate += now_s() - t0;
+    if (!members.empty()) return kBatchCollect;
+    // the batch fills over many reads: keep the window compacted
+    if (rd->comp_head > rd->comp_compact) {
+      rd->comp.drop_front(rd->comp_head);
+      rd->comp_head = 0;
+    }
+    return kBatchRead;
+  }
+  rd->raw.resize(out_base + rd->added_out);
+  if (rd->raw.oom) {
+    rd->error = "out of memory (inflate window)";
+    return kBatchFailed;
+  }
+  int rc = rd->inflater(rd->inflater_ctx, 1, nullptr, nullptr,
+                        static_cast<int64_t>(rd->added_members),
+                        rd->raw.data() + out_base,
+                        static_cast<int64_t>(rd->added_out));
+  rd->t_inflate += now_s() - t0;
+  rd->n_members += static_cast<int64_t>(rd->added_members);
+  rd->n_refills += 1;
+  rd->bytes_inflated += static_cast<int64_t>(rd->added_out);
+  rd->added_in = rd->added_out = rd->added_members = 0;
+  if (rc != 0) {
+    rd->error = rc == 1 ? "BGZF inflate failed"
+                        : "BGZF inflate on the card failed";
+    return kBatchFailed;
+  }
+  return rd->raw.size() > out_base ? kBatchOut : kBatchCollect;
+}
+
 // Read more compressed bytes, inflate every complete member in the window
 // (thread pool over members), append to raw. Returns false when no new
 // inflated bytes could be produced (EOF or error).
+// With an inflater set, past the header the members go to its batches
+// (batch_step) in place of the pool; until the header is parsed, the pool
+// inflates a member at a time, so a header-only open inflates only what
+// the header spans and every later member can go to the inflater.
 bool refill(Reader* rd) {
   // reclaim consumed prefixes of both rolling buffers
   if (rd->comp_head > rd->comp_compact) {
@@ -289,6 +396,7 @@ bool refill(Reader* rd) {
     size_t out_base = rd->raw.size();
     size_t out_off = out_base;
     while (true) {
+      if (!rd->header_done && out_off > out_base) break;  // a member at a time
       uint32_t bsize = 0, isize = 0;
       bool valid = true;
       if (!member_at(rd->comp, off, &bsize, &isize, &valid)) {
@@ -298,10 +406,19 @@ bool refill(Reader* rd) {
         }
         break;
       }
+      if (batch_full(rd, members.size(), off + bsize - rd->comp_head,
+                     out_off + isize - out_base))
+        break;
       members.push_back({off, bsize, out_off, isize});
       off += bsize;
       out_off += isize;
     }
+    if (rd->inflater && rd->header_done) {
+      const BatchStep step = batch_step(rd, members, off, out_base);
+      if (step == kBatchFailed) return false;
+      if (step == kBatchOut) return true;
+      if (step == kBatchCollect) continue;
+    } else
     if (!members.empty()) {
       double t0 = now_s();
       rd->raw.resize(out_off);
@@ -582,6 +699,20 @@ void duet_bam_set_compact(void* h, int64_t comp_bytes, int64_t raw_bytes) {
   auto* rd = static_cast<Reader*>(h);
   if (comp_bytes > 0) rd->comp_compact = static_cast<size_t>(comp_bytes);
   if (raw_bytes > 0) rd->raw_compact = static_cast<size_t>(raw_bytes);
+}
+
+// Inflate through `fn` (an InflateFn) with `ctx`, in batches of at most
+// max_members members, max_in compressed and max_out inflated bytes; a
+// null fn restores the zlib pool.  Set after the open, before the first
+// contig: the header's members inflate on the pool.
+void duet_bam_set_inflater(void* h, void* fn, void* ctx, int64_t max_in,
+                           int64_t max_out, int64_t max_members) {
+  auto* rd = static_cast<Reader*>(h);
+  rd->inflater = reinterpret_cast<InflateFn>(fn);
+  rd->inflater_ctx = ctx;
+  rd->batch_in = static_cast<size_t>(max_in);
+  rd->batch_out = static_cast<size_t>(max_out);
+  rd->batch_members = static_cast<size_t>(max_members);
 }
 
 // decode only these ref ids (multi-process contig ownership); n == 0 resets

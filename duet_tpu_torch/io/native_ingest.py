@@ -2,8 +2,9 @@
 
 Loads libduet_ingest.so (building it with g++ on first use if the
 toolchain is present) and exposes the STREAMING contig iterator the C++
-core implements: bounded rolling buffers, threaded BGZF inflate, parallel
-record-to-column decode, and an in-decoder contig filter.  On top of it:
+core implements: bounded rolling buffers, threaded BGZF inflate (or, given
+a card, the card's: ``ops.bgzf_inflate``), parallel record-to-column
+decode, and an in-decoder contig filter.  On top of it:
 
   stream_read_store_native   generator of (ContigReads, contig_lengths) —
                              the native backend of readstore.stream_contig_reads
@@ -20,11 +21,13 @@ Falls back to the Python path when the library can't be built
 The library is built from the port's own copy of the ingest source,
 ``duet_tpu_torch/csrc/duet_ingest.cc``: ``native/duet_ingest.cc`` verbatim
 but for its BGZF member inflate, which calls zlib (one reusable
-``z_stream`` per thread, the gzip trailer's CRC32 and ISIZE checked)
-where the original links a separate inflate library, so it builds and
-loads on any host with zlib, and for ``duet_bam_release``, which the
-stream calls once a contig is copied out, so that the reader does not
-hold it a second time while the consumer works on it.  It is compiled with native/Makefile's
+``z_stream`` per thread, the gzip trailer's CRC32 and ISIZE checked, the
+empty EOF member's too) where the original links a separate inflate
+library, so it builds and loads on any host with zlib, or hands whole
+batches of members to an inflater (``duet_bam_set_inflater``: the card's,
+``ops.bgzf_inflate``), and for ``duet_bam_release``, which the stream
+calls once a contig is copied out, so that the reader does not hold it a
+second time while the consumer works on it.  It is compiled with native/Makefile's
 compiler flags, linked against zlib alone, into
 ``build/duet_tpu_torch/native-<hash>/`` (keyed by a hash of the source and
 flags), so that this package never loads an object another package
@@ -41,7 +44,7 @@ import time
 import numpy as np
 
 from duet_tpu_torch.io.readstore import ContigReads, ReadStore
-from duet_tpu_torch.utils import spans
+from duet_tpu_torch.utils import devcost, dispatch, spans
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _SRC = os.path.join(_REPO_ROOT, "duet_tpu_torch", "csrc", "duet_ingest.cc")
@@ -87,20 +90,29 @@ class _RuWindow:
 
 # the native decode's counters (utils.spans, each ``ingest.<key>``): the
 # reader's phase timers and volumes from duet_bam_stats, in its order, then
-# the getrusage deltas across the decode calls and the Python-side fetch
+# the getrusage deltas across the decode calls, the Python-side fetch and
+# the members the card inflated
 _STATS = ("fread_s", "inflate_s", "scan_s", "size_s", "fill_s",
           "bytes_compressed", "bytes_inflated", "bgzf_members",
           "inflate_batches")
 _DECODE_KEYS = _STATS + ("minor_faults", "major_faults", "cpu_user_s",
-                         "cpu_kernel_s", "py_fetch_s")
+                         "cpu_kernel_s", "py_fetch_s", "inflate_card_members")
 
 
-def _count_stats(lib, h, ru: "_RuWindow", py_fetch_s: float) -> None:
+def _count_stats(lib, h, ru: "_RuWindow", py_fetch_s: float,
+                 card: dict | None) -> None:
     raw = (ctypes.c_double * len(_STATS))()
     lib.duet_bam_stats(ctypes.c_void_p(h), raw)
-    values = [*raw, ru.minflt, ru.majflt, ru.utime, ru.stime, py_fetch_s]
+    values = [*raw, ru.minflt, ru.majflt, ru.utime, ru.stime, py_fetch_s,
+              card["members"] if card else 0]
     for key, v in zip(_DECODE_KEYS, values):
         spans.count("ingest." + key, v if key.endswith("_s") else int(v))
+    if card and card["launches"]:
+        # the card's copies and decode, timed in the inflater
+        n = card["launches"]
+        devcost.record("ingest", "h2d", card["h2d_s"], n, card["h2d_bytes"])
+        devcost.record("ingest", "compute", card["compute_s"], n)
+        devcost.record("ingest", "d2h", card["d2h_s"], n, card["d2h_bytes"])
 
 
 def decode_stats() -> dict | None:
@@ -170,6 +182,10 @@ def get_lib() -> ctypes.CDLL:
                                         ctypes.POINTER(ctypes.c_int32),
                                         ctypes.c_int32]
     lib.duet_bam_set_compact.restype = None
+    lib.duet_bam_set_inflater.restype = None
+    lib.duet_bam_set_inflater.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                          ctypes.c_void_p, ctypes.c_int64,
+                                          ctypes.c_int64, ctypes.c_int64]
     lib.duet_bam_set_compact.argtypes = [ctypes.c_void_p, ctypes.c_int64,
                                          ctypes.c_int64]
     lib.duet_bam_next_contig.restype = ctypes.c_int32
@@ -318,7 +334,7 @@ def stream_read_store_native(bam_path: str, min_mapq: int = 0,
                              n_threads: int | None = None,
                              only_contigs: set[str] | None = None,
                              compact_bytes: int | None = None,
-                             on_header=None):
+                             on_header=None, inflate_device=None):
     """Generator of (ContigReads, contig_lengths): the native backend of
     readstore.stream_contig_reads.  Peak memory is one contig's columns +
     the decoder's rolling buffers; only_contigs filters at decode time.
@@ -327,12 +343,16 @@ def stream_read_store_native(bam_path: str, min_mapq: int = 0,
     given, is called with the header's {contig: length} dict as soon as the
     handle opens — callers get the header from THIS open instead of paying
     a second decoder startup (thread pool + first BGZF window) just to read
-    it."""
+    it.  inflate_device, a CUDA device, inflates the BGZF members past the
+    header on that card (``ops.bgzf_inflate.CardInflater``); None keeps the
+    zlib pool.  The bytes inflated are the same either way.  One
+    ``dispatch.ingest_inflate.{card,host}`` a decode."""
     lib = get_lib()
     if n_threads is None:
         n_threads = max(os.cpu_count() or 1, 1)
     ru = _RuWindow()
     py_fetch_s = 0.0  # buffer alloc + name decode around duet_bam_fill
+    inflater = card = None
     with ru:
         h = lib.duet_bam_open(bam_path.encode(), min_mapq, n_threads)
     try:
@@ -351,6 +371,13 @@ def stream_read_store_native(bam_path: str, min_mapq: int = 0,
         }
         if on_header is not None:
             on_header(contig_lengths)
+        if inflate_device is not None:
+            from duet_tpu_torch.ops.bgzf_inflate import CardInflater
+
+            inflater = CardInflater(inflate_device, n_threads)
+            inflater.attach(lib, h)
+        dispatch.record("ingest_inflate",
+                        "host" if inflater is None else "card")
         if only_contigs is not None:
             ids = [i for i, nm in enumerate(ref_names) if nm in only_contigs]
             if not ids:
@@ -365,9 +392,14 @@ def stream_read_store_native(bam_path: str, min_mapq: int = 0,
                 rid = lib.duet_bam_next_contig(h)
                 if rid == -2:
                     err = lib.duet_bam_error(h)
-                    raise ValueError(
-                        f"{bam_path}: "
-                        f"{err.decode() if err else 'decode error'}")
+                    err = err.decode() if err else "decode error"
+                    if inflater is not None and inflater.error():
+                        from duet_tpu_torch.ops.bgzf_inflate import \
+                            CardInflateError
+
+                        raise CardInflateError(
+                            f"{bam_path}: {err}: {inflater.error()}")
+                    raise ValueError(f"{bam_path}: {err}")
                 if rid >= 0:
                     t0 = time.perf_counter()
                     cr = _fetch_contig(lib, h, ref_names[rid])
@@ -383,7 +415,9 @@ def stream_read_store_native(bam_path: str, min_mapq: int = 0,
         # abandoned-generator cleanup can run at interpreter teardown, when
         # the ctypes function attributes may already be torn down
         try:
-            _count_stats(lib, h, ru, py_fetch_s)
+            if inflater is not None:
+                card = inflater.close()
+            _count_stats(lib, h, ru, py_fetch_s, card)
         except Exception:
             pass
         close = getattr(lib, "duet_bam_close", None)
@@ -409,11 +443,13 @@ def bam_contig_lengths_native(bam_path: str) -> dict[str, int]:
 
 def load_read_store_native(bam_path: str, min_mapq: int = 0,
                            n_threads: int | None = None,
-                           only_contigs: set[str] | None = None) -> ReadStore:
+                           only_contigs: set[str] | None = None,
+                           inflate_device=None) -> ReadStore:
     """Native BAM decode -> per-contig ReadStore (column parity with the
     Python reader; tests pin equality).  A contig split across several
     stream segments (non-coordinate-sorted input) is concatenated and
-    re-sorted, matching readstore.load_read_store."""
+    re-sorted, matching readstore.load_read_store.  inflate_device as in
+    ``stream_read_store_native``."""
     parts: dict[str, list[ContigReads]] = {}
     # header lengths arrive via the stream's own open (they survive even
     # when the ownership filter keeps nothing — the Python reader keeps
@@ -421,7 +457,7 @@ def load_read_store_native(bam_path: str, min_mapq: int = 0,
     header: dict[str, int] = {}
     for cr, lengths in stream_read_store_native(
             bam_path, min_mapq, n_threads, only_contigs,
-            on_header=header.update):
+            on_header=header.update, inflate_device=inflate_device):
         parts.setdefault(cr.contig, []).append(cr)
     contig_lengths = header
     contigs: dict[str, ContigReads] = {}

@@ -154,18 +154,23 @@ def stream_contig_reads(bam_path: str, min_mapq: int = 0):
 
 def stream_contig_reads_auto(bam_path: str, min_mapq: int = 0,
                              n_threads: int = 1,
-                             only_contigs: set[str] | None = None):
+                             only_contigs: set[str] | None = None,
+                             inflate_device=None):
     """stream_contig_reads with the native streaming decoder when the C++
-    library is buildable (bounded rolling buffers, threaded inflate,
-    parallel column decode — native/duet_ingest.cc), Python fallback
-    otherwise.  Returns (generator, backend_name)."""
+    library is buildable (bounded rolling buffers, threaded inflate, on the
+    card `inflate_device` when one is given, parallel column decode —
+    native/duet_ingest.cc), Python fallback otherwise, but never for the
+    card's route.  Returns (generator, backend_name)."""
     try:
         from duet_tpu_torch.io.native_ingest import get_lib, stream_read_store_native
 
         get_lib()  # raises NativeUnavailable before the generator starts
         return stream_read_store_native(
-            bam_path, min_mapq, n_threads, only_contigs), "native"
+            bam_path, min_mapq, n_threads, only_contigs,
+            inflate_device=inflate_device), "native"
     except Exception:
+        if inflate_device is not None:
+            raise
         gen = stream_contig_reads(bam_path, min_mapq)
         if only_contigs is not None:
             gen = ((cr, ln) for cr, ln in gen if cr.contig in only_contigs)

@@ -135,15 +135,17 @@ def sweep_launch_shape(R: int, S: int,
 
 
 def build() -> None:
-    """Build (or load) the port's four kernel libraries (score, sweep,
-    ``ops.pileup_kernel``'s pileup and ``ops.snp_features``' candidate and
-    feature passes), their nvcc runs in parallel."""
-    from duet_tpu_torch.ops import pileup_kernel, snp_features
+    """Build (or load) the port's five kernel libraries (score, sweep,
+    ``ops.pileup_kernel``'s pileup, ``ops.snp_features``' candidate and
+    feature passes and ``ops.bgzf_inflate``'s BGZF inflate), their nvcc
+    runs in parallel."""
+    from duet_tpu_torch.ops import bgzf_inflate, pileup_kernel, snp_features
 
-    with ThreadPoolExecutor(4) as ex:
+    with ThreadPoolExecutor(5) as ex:
         for f in [ex.submit(_score_library), ex.submit(_sweep_library),
                   ex.submit(pileup_kernel.build),
-                  ex.submit(snp_features.build)]:
+                  ex.submit(snp_features.build),
+                  ex.submit(bgzf_inflate.build)]:
             f.result()
 
 

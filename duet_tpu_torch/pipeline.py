@@ -289,6 +289,15 @@ class PipelineConfig:
             "haplotag_mode": HAPLOTAG_DEVICE_MODE,
         }
 
+    def inflate_device(self) -> torch.device | None:
+        """Where native ingest inflates the BAM's BGZF members: the card
+        (``ops.bgzf_inflate``) whenever the stages run on a CUDA device
+        ('auto' or 'on'); else None, the host's zlib pool."""
+        dev = self.torch_device()
+        if self.stages_on_device() and dev.type == "cuda":
+            return dev
+        return None
+
     def nn_device(self) -> torch.device:
         """Where the neural SNP caller runs: the device when the stages
         run there, else the host."""
@@ -544,22 +553,28 @@ def read_haplotag_table(path: str) -> dict[str, tuple[int, int, int]]:
 
 def _ingest(cfg: PipelineConfig,
             only_contigs: set[str] | None = None) -> tuple[ReadStore, str]:
-    """Native C++ BAM decode (streaming, threaded BGZF inflate + parallel
-    record parse) with Python fallback.  Returns (store, backend_name).
+    """Native C++ BAM decode (streaming, threaded BGZF inflate, on the
+    card where ``cfg.inflate_device`` says so, + parallel record parse)
+    with Python fallback.  Returns (store, backend_name).
 
     only_contigs: multi-process ownership filter — applied DURING decode by
     the native reader (non-owned contigs' records are skipped at scan time,
-    never column-decoded)."""
+    never column-decoded).  A decode that inflates on the card raises
+    whatever fails: the card route has no host fallback."""
+    card = cfg.inflate_device()
     try:
         from duet_tpu_torch.io.native_ingest import load_read_store_native
 
         # inflate threads beyond the physical cores only add contention
         n_threads = min(cfg.threads, os.cpu_count() or cfg.threads)
-        store = load_read_store_native(cfg.bam, n_threads=n_threads,
-                                       only_contigs=only_contigs)
+        store = load_read_store_native(
+            cfg.bam, n_threads=n_threads, only_contigs=only_contigs,
+            inflate_device=card)
         get_logger().info("ingest backend: native")
         return store, "native"
     except Exception as e:  # NativeUnavailable or build/runtime failure
+        if card is not None:
+            raise
         get_logger().warning("native ingest unavailable (%s); using Python reader", e)
         return load_read_store(cfg.bam, only_contigs=only_contigs), "python"
 
@@ -917,7 +932,7 @@ def _write_metrics(cfg: PipelineConfig, st: PipelineState, total: float,
     dev = cfg.torch_device()
     metrics.update({
         "backends": {s: dispatch.backend_label(s, snap)
-                     for s in dispatch.STAGES},
+                     for s in dispatch.LABELED},
         "device_dispatch": snap,
         "device_cost": devcost.snapshot(),
         # the device the run was configured for
@@ -986,7 +1001,8 @@ def run_pipeline_streaming(cfg: PipelineConfig) -> str:
         stage_rss[stage] = max(stage_rss[stage], _peak_rss_mb())
 
     stream, stream_backend = stream_contig_reads_auto(
-        cfg.bam, n_threads=cfg.threads)
+        cfg.bam, n_threads=cfg.threads,
+        inflate_device=cfg.inflate_device())
     # contig N+1 decodes on a background thread while the stages process
     # contig N ("ingest" below is then the stall waiting for the decode);
     # only with spare cores, where the two do not just time-slice

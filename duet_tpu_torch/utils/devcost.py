@@ -13,6 +13,8 @@ call site splits its work into three timed phases, each a span of
                                one dispatch
   get(stage, x)                ``x.cpu().numpy()``: one d2h span, and its
                                bytes
+  record(stage, phase, s, n)   a phase that native code timed (the
+                               card's BGZF inflate), with its bytes
 
 The synchronize after each phase serializes transfer and compute; that is
 the price of attributing them, and ``compute_s`` is time to completion.  On
@@ -72,6 +74,16 @@ def get(stage: str, x: torch.Tensor) -> np.ndarray:
         out = x.cpu().numpy()
     spans.count(f"{_PREFIX}{stage}.d2h_bytes", out.nbytes)
     return out
+
+
+def record(stage: str, phase: str, seconds: float, n: int,
+           nbytes: int | None = None) -> None:
+    """Charge `n` calls and `seconds` of a phase timed in native code (the
+    card's BGZF inflater) to ``device.<stage>.<phase>``, and for a copy its
+    bytes."""
+    spans.add(f"{_PREFIX}{stage}.{phase}", seconds, n)
+    if nbytes is not None:
+        spans.count(f"{_PREFIX}{stage}.{phase}_bytes", nbytes)
 
 
 def snapshot() -> dict[str, dict[str, float]]:

@@ -11,9 +11,11 @@ run_duet.log has no such attribution at all — SURVEY.md §5.1).
 Stages: snp_pileup, sv_cluster, phase_refine, haplotag, sv_decide.
 Backends: host (numpy or native C++), device (single-device jit kernel),
 mesh (sharded kernel with collectives), nn (neural caller, jax-managed).
-Beside them, off ``STAGES`` and the labels: ``snp_features``, where the
-neural caller built its candidates and features (kernel: the card's hand
-kernels; host: numpy).
+Beside them, off ``STAGES``: ``ingest_inflate``, where the native reader
+inflated the BGZF members, once a decode (card: ``ops.bgzf_inflate``'s
+kernel; host: the zlib pool), labeled too (``LABELED``); and
+``snp_features``, where the neural caller built its candidates and
+features (kernel: the card's hand kernels; host: numpy).
 
 Each event is a counter of ``utils.spans``, ``dispatch.<stage>.<backend>``;
 thread-safe (stage fan-out runs contigs on a thread pool).
@@ -26,6 +28,8 @@ from duet_tpu_torch.utils import spans
 _PREFIX = "dispatch."
 
 STAGES = ("snp_pileup", "sv_cluster", "phase_refine", "haplotag", "sv_decide")
+# the port's own stages with a label: the native reader's BGZF inflate
+LABELED = STAGES + ("ingest_inflate",)
 
 
 def record(stage: str, backend: str, n: int = 1) -> None:
@@ -59,6 +63,6 @@ def backend_label(stage: str, snap: dict | None = None) -> str:
     if not backends:
         return "unused"
     # mesh/device ahead of host in mixed labels: most-capable first
-    order = {"mesh": 0, "device": 1, "nn": 2, "host": 3}
+    order = {"mesh": 0, "device": 1, "card": 1, "nn": 2, "host": 3}
     backends.sort(key=lambda b: order.get(b, 9))
     return "+".join(backends)

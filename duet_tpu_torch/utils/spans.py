@@ -22,7 +22,8 @@ ranges share the Chrome trace's timeline with the card's kernels and
 copies; otherwise a span costs two clock reads and one locked dict update.
 
 A counter adds a value under a name (bytes, items, or a native timer's
-seconds: ``count``).  ``reset`` starts a run's window (or clears the names
+seconds: ``count``); ``add`` charges a span with seconds that native code
+timed itself.  ``reset`` starts a run's window (or clears the names
 under one prefix), ``snapshot`` reads it.  Thread-safe.
 
 ``idle_by_span`` reduces a Chrome trace of a run to the card's idle time
@@ -128,6 +129,21 @@ class span:
                 return fn(*args, **kwargs)
 
         return spanned
+
+
+def add(name: str, seconds: float, n: int = 1) -> None:
+    """Add `n` calls and their `seconds` to the span `name`, for work timed
+    elsewhere (native code's own clocks); it has no parent, and its longest
+    call is taken as `seconds` over `n`."""
+    with _lock:
+        e = _spans.get(name)
+        if e is None:
+            e = _spans[name] = {"s": 0.0, "self_s": 0.0, "n": 0,
+                                "max_s": 0.0, "parent": None}
+        e["s"] += seconds
+        e["self_s"] += seconds
+        e["n"] += n
+        e["max_s"] = max(e["max_s"], seconds / max(n, 1))
 
 
 def count(name: str, value: float = 1) -> None:

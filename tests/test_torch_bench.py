@@ -69,6 +69,8 @@ def test_e2e_blocks(small, capsys, argv):
         assert e2e["megabases"] == 1 and e2e["phased_calls"] > 0
         # --device cpu: auto keeps every stage on the host, on forces all
         want = "device" if stages == "on" else "host"
+        # the BGZF inflate's card route runs on CUDA only
+        assert e2e["backends"].pop("ingest_inflate") == "host"
         assert set(e2e["backends"].values()) == {want}, e2e["backends"]
 
 

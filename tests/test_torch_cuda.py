@@ -16,7 +16,7 @@ import torch
 
 import chip_smoke
 from duet_tpu_torch.bench import make_batch
-from duet_tpu_torch.ops import haplotag_kernel, pileup_kernel
+from duet_tpu_torch.ops import bgzf_inflate, haplotag_kernel, pileup_kernel
 from duet_tpu_torch.ops.pileup import (
     call_plain,
     count_plain,
@@ -271,6 +271,8 @@ def test_device_routes_on_card_match_host(cuda_device, tmp_path):
                                     device="cuda"))
     with open(os.path.join(outs["on"], "metrics.json")) as f:
         backends = json.load(f)["backends"]
+    # the BGZF inflate's device route is the card's kernel
+    assert backends.pop("ingest_inflate") == "card"
     assert set(backends.values()) == {"device"}, backends
     for name in ("snp_calling/pileup.vcf.gz", "sv_calling/variants.vcf",
                  "phased_sv.vcf"):
@@ -384,3 +386,142 @@ def test_nn_call_snps_on_card_matches_cpu(cuda_device, tmp_path):
             np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
                                           err_msg=f)
             assert getattr(got, f).dtype == getattr(want, f).dtype, f
+
+
+@pytest.mark.parametrize("level", chip_smoke.BGZF_LEVELS)
+@pytest.mark.parametrize("strategy", list(chip_smoke.BGZF_STRATEGIES))
+def test_bgzf_kernel_matches_zlib(cuda_device, level, strategy):
+    """The BGZF inflate kernel byte-equal to zlib on members deflated at
+    each level with each strategy: a BAM-like 65,280-byte block,
+    overlapping matches, random bytes, text, one byte and the empty EOF
+    member; one launch, every status 0."""
+    named = chip_smoke.bgzf_edge_members(
+        level, chip_smoke.BGZF_STRATEGIES[strategy])
+    before = bgzf_inflate.launches()["bgzf_inflate"]
+    out, status, want, want_status = chip_smoke.bgzf_on_card(
+        [m for _, m in named])
+    assert bgzf_inflate.launches()["bgzf_inflate"] == before + 1
+    assert want_status == [0] * (len(named) + 1)
+    assert status == want_status
+    assert out == want
+
+
+@pytest.mark.parametrize("fault,code", [("crc32", 3), ("isize", 4),
+                                        ("truncated", 1)])
+def test_bgzf_kernel_flags_bad_trailers(cuda_device, fault, code):
+    """A member whose CRC32 or byte count disagrees with its output, or
+    whose data is cut short, is flagged on the card, its neighbours not."""
+    good = chip_smoke.bgzf_edge_members(6, 0)[0][1]
+    bad = chip_smoke.bgzf_faults(good)[fault]
+    _, status, _, want_status = chip_smoke.bgzf_on_card([good, bad, good])
+    assert status == [0, code, 0, code]
+    assert want_status[1] != 0
+
+
+@pytest.fixture
+def small_batches(monkeypatch):
+    """Card batches of about two members, so a decode takes several and
+    the rolling buffers move between them."""
+    monkeypatch.setattr(bgzf_inflate, "BATCH_IN", 100_000)
+    monkeypatch.setattr(bgzf_inflate, "BATCH_OUT", 1 << 20)
+
+
+def test_card_route_stores_match_host(cuda_device, tmp_path, small_batches):
+    """Native ingest with the card's inflater gives the zlib pool's store,
+    in the batch reader and in the stream reader with its buffers
+    compacted; the card inflates every member past the header's."""
+    from duet_tpu_torch.io import native_ingest
+    from duet_tpu_torch.sim import SimConfig, simulate_dataset
+    from duet_tpu_torch.utils import spans
+
+    simulate_dataset(str(tmp_path), SimConfig(
+        contigs={"chrA": 150_000, "chrB": 100_000, "chrC": 60_000},
+        seed=31, coverage=12.0))
+    bam = str(tmp_path / "reads.bam")
+    n_members = len(bgzf_inflate.member_table(open(bam, "rb").read()))
+    spans.reset()
+    want = native_ingest.load_read_store_native(bam)
+    got = native_ingest.load_read_store_native(bam, inflate_device=cuda_device)
+    assert spans.snapshot()["counters"]["ingest.inflate_card_members"] == \
+        n_members - 1
+    stream_want = list(native_ingest.stream_read_store_native(
+        bam, compact_bytes=4096))
+    stream_got = list(native_ingest.stream_read_store_native(
+        bam, compact_bytes=4096, inflate_device=cuda_device))
+    pairs = [(got.contigs[c], want.contigs[c]) for c in want.contigs] + \
+        [(g, w) for (g, _), (w, _) in zip(stream_got, stream_want)]
+    assert len(stream_got) == len(stream_want) == len(want.contigs)
+    for g, w in pairs:
+        assert g.contig == w.contig and g.names == w.names
+        for f in ("starts", "ends", "strand", "mapq", "supp", "cigar_off",
+                  "cigar_ops", "cigar_lens", "seq_off", "seq", "qual"):
+            np.testing.assert_array_equal(getattr(g, f), getattr(w, f),
+                                          err_msg=f"{g.contig}.{f}")
+
+
+def test_card_route_modes_match_batch(cuda_device, tmp_path, small_batches):
+    """--stream and a two-process run, each inflating on the card, write
+    the artifacts of the batch run, and of the zlib pool's run."""
+    from duet_tpu_torch.pipeline import (PipelineConfig, run_pipeline,
+                                         run_pipeline_streaming)
+    from duet_tpu_torch.sim import SimConfig, simulate_dataset
+
+    data = str(tmp_path / "data")
+    simulate_dataset(data, SimConfig(contigs={"chr1": 150_000,
+                                              "chr2": 100_000},
+                                     seed=9, coverage=15.0))
+
+    def cfg(name, **kw):
+        return PipelineConfig(bam=os.path.join(data, "reads.bam"),
+                              reference=os.path.join(data, "ref.fa"),
+                              output=str(tmp_path / name),
+                              include_all_ctgs=True, device="cuda", **kw)
+
+    run_pipeline(cfg("batch", device_stages="on"))
+    run_pipeline(cfg("host", device_stages="off"))
+    run_pipeline_streaming(cfg("stream", device_stages="on"))
+    for pid in (1, 0):
+        run_pipeline(cfg("multi", device_stages="on", num_processes=2,
+                         process_id=pid))
+    for run in ("batch", "stream", "multi"):
+        with open(tmp_path / run / "metrics.json") as f:
+            metrics = json.load(f)
+        assert metrics["device_dispatch"]["ingest_inflate"] == {"card": 1}
+    for run in ("host", "stream", "multi"):
+        for name in ("snp_calling/pileup.vcf.gz", "sv_calling/variants.vcf",
+                     "phased_sv.vcf"):
+            assert chip_smoke._read(str(tmp_path / run / name)) == \
+                chip_smoke._read(str(tmp_path / "batch" / name)), \
+                (run, name)
+
+
+@pytest.mark.parametrize("mode", ["batch", "stream"])
+def test_card_route_bad_member_fails_the_run(cuda_device, tmp_path, mode):
+    """A BAM with one member's CRC32 flipped fails a run that inflates on
+    the card with the reader's error: the kernel flags the member, and no
+    other reader decodes the BAM in the card's place."""
+    import struct
+
+    from duet_tpu_torch.pipeline import (PipelineConfig, run_pipeline,
+                                         run_pipeline_streaming)
+    from duet_tpu_torch.sim import SimConfig, simulate_dataset
+
+    data = str(tmp_path / "data")
+    simulate_dataset(data, SimConfig(contigs={"chr1": 150_000}, seed=5,
+                                     coverage=12.0))
+    bam = os.path.join(data, "reads.bam")
+    raw = bytearray(open(bam, "rb").read())
+    a, b, _, _ = bgzf_inflate.member_table(bytes(raw))[3].tolist()
+    raw[a + b - 8] ^= 0x10
+    assert struct.unpack_from("<I", raw, a + b - 8) != \
+        struct.unpack_from("<I", open(bam, "rb").read(), a + b - 8)
+    with open(bam, "wb") as f:
+        f.write(bytes(raw))
+    out = tmp_path / "out"
+    cfg = PipelineConfig(bam=bam, reference=os.path.join(data, "ref.fa"),
+                         output=str(out), device="cuda",
+                         device_stages="auto")
+    run = run_pipeline if mode == "batch" else run_pipeline_streaming
+    with pytest.raises(ValueError, match="BGZF inflate failed$"):
+        run(cfg)
+    assert not (out / "metrics.json").exists()

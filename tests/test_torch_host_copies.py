@@ -114,8 +114,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # native/duet_ingest.cc: the inflate library's include, inflate_block with
 # the comment above it, the inflate worker of the thread pool, the module
 # the header names as the C API's consumer; and, in the port's source
-# alone, the API lines of duet_bam_release and duet_bam_held_bytes and
-# the two functions with their comments
+# alone, its inflater route (duet_bam_set_inflater): the API line, the
+# inflater's type, the reader's fields for it, the helpers before refill,
+# the comment lines refill adds, the header's member-at-a-time line and
+# the batch-full check in its member scan, the branch that hands the
+# members to the inflater, and the setter; and the API lines of
+# duet_bam_release and duet_bam_held_bytes and the two functions with
+# their comments.  The rest of refill (the reclaim, the member scan, the
+# zlib pool, the file read) stays the shared source's.
 OWN_REGIONS = (
     (r"#include <(libdeflate|zlib)\.h>\n", "<include>\n", True),
     (r"(//[^\n]*\n)+bool inflate_block\(.*?\n}\n", "<inflate_block>\n",
@@ -124,6 +130,20 @@ OWN_REGIONS = (
      "<worker>\n", True),
     (r"consumed via ctypes from duet_tpu(_torch)?/io/native_ingest\.py",
      "<consumer>", True),
+    (r"//   duet_bam_set_inflater\(.*?\n(?=//   duet_bam_next_contig)", "",
+     False),
+    (r"\n(//[^\n]*\n)+typedef int \(\*InflateFn\)\(.*?\);\n", "", False),
+    (r"  // the batch inflater, .*?added_members = 0;\n\n", "", False),
+    (r"// The inflater's route \(duet_bam_set_inflater\), refill's steps.*?"
+     r"\n}\n\n(?=// Read more compressed bytes)", "", False),
+    (r"// With an inflater set, past the header .*?\n(?=bool refill)", "",
+     False),
+    (r"      if \(!rd->header_done && out_off > out_base\) break;[^\n]*\n", "",
+     False),
+    (r"      if \(batch_full\(.*?\n        break;\n", "", False),
+    (r"    if \(rd->inflater && rd->header_done\) \{\n.*?\n    \} else\n", "",
+     False),
+    (r"(//[^\n]*\n)+void duet_bam_set_inflater\(.*?\n}\n\n", "", False),
     (r"//   duet_bam_release / duet_bam_held_bytes\n//     [^\n]*\n", "",
      False),
     (r"(//[^\n]*\n)+void duet_bam_release\(void\* h\) \{\n.*?\n}\n\n"
@@ -163,6 +183,11 @@ def test_ingest_source_is_the_shared_one_but_for_its_inflate():
     ("mremap(raw.p, raw.cap, keep, 0)", True),   # inside duet_bam_release
     ("c.flag.capacity() * 2", True),             # inside duet_bam_held_bytes
     ("inflateReset(zs)", True),                  # inside inflate_block
+    ("batch_step(rd, members, off, out_base)", True),  # the inflater's
+    ("rd->added_in += off - rd->comp_head;", True),    # inside batch_step
+    ("rd->error = \"invalid BGZF stream\";", False),   # refill's scan
+    ("nt = static_cast<int>(members.size());", False),  # refill's pool
+    ("if (rd->file_eof) return false;", False),        # refill's read
     ("rd->metas.clear();", False),               # decode_columns
     ("rd->retain = rd->scan_pos;", False),       # duet_bam_next_contig
     ("constexpr size_t kReadChunk", False),      # a constant

@@ -238,6 +238,9 @@ def test_mesh_pipeline_matches_duet_and_single(two_contigs, single_device,
         ref_metrics = json.load(f)
     dp, sp = (int(x) for x in mesh.split(","))
     assert metrics["mesh"] == ref_metrics["mesh"] == {"dp": dp, "sp": sp}
+    # the port alone records its BGZF inflate: on the host on the CPU
+    assert metrics["backends"].pop("ingest_inflate") == "host"
+    assert metrics["device_dispatch"].pop("ingest_inflate") == {"host": 1}
     assert metrics["backends"] == ref_metrics["backends"]
     for stage in ("snp_pileup", "sv_cluster", "haplotag"):
         assert metrics["backends"][stage] == "mesh", stage

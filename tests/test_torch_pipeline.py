@@ -60,7 +60,9 @@ def test_artifacts_match_jax_pipeline(sim_dataset, tmp_path, mode, backend):
     with open(os.path.join(want, "metrics.json")) as f:
         ref_keys = set(json.load(f))
     assert set(metrics) == ref_keys | {"device", "spans", "counters"}
-    assert metrics["backends"] == dict.fromkeys(STAGES, backend)
+    # the port's BGZF inflate label too: its card route runs on CUDA only
+    assert metrics["backends"] == {**dict.fromkeys(STAGES, backend),
+                                   "ingest_inflate": "host"}
     assert metrics["device"] == {"type": "cpu", "name": None}
     for stage, row in metrics["device_cost"].items():
         assert tuple(row) == _FIELDS, stage
@@ -141,7 +143,8 @@ def test_auto_gates_stay_on_host_for_cpu_device(sim_dataset, tmp_path):
                                 output=out, device="cpu"))
     with open(os.path.join(out, "metrics.json")) as f:
         metrics = json.load(f)
-    assert metrics["backends"] == dict.fromkeys(STAGES, "host")
+    assert metrics["backends"] == {**dict.fromkeys(STAGES, "host"),
+                                   "ingest_inflate": "host"}
     assert metrics["device_size_gates"] == {
         "pileup_min_bases": None, "pileup_contig_min_bases": None,
         "sv_cluster_min_signatures": 64_000,

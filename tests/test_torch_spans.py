@@ -28,7 +28,8 @@ CPU = torch.device("cpu")
 NATIVE_KEYS = ["fread_s", "inflate_s", "scan_s", "size_s", "fill_s",
                "bytes_compressed", "bytes_inflated", "bgzf_members",
                "inflate_batches", "minor_faults", "major_faults",
-               "cpu_user_s", "cpu_kernel_s", "py_fetch_s"]
+               "cpu_user_s", "cpu_kernel_s", "py_fetch_s",
+               "inflate_card_members"]
 # every run's spans, and each SNP route's own
 COMMON = {"ingest", "ingest.fasta_index", "ingest.bam_decode",
           "snp_calling", "sv_calling", "snp_phasing", "sv_phasing",

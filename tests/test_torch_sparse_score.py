@@ -222,6 +222,8 @@ def test_pipeline_sparse_mode_matches_jax(sim_dataset, tmp_path,
     with open(os.path.join(got, "metrics.json")) as f:
         metrics = json.load(f)
     assert metrics["device_dispatch"]["haplotag"]["device"] == 1
-    # every gated stage on the device; auto keeps the pileup on the host
+    # every gated stage on the device; auto keeps the pileup on the host,
+    # and the BGZF inflate's card route runs on CUDA only
     assert {s: b for s, b in metrics["backends"].items()
-            if b != "device"} == {"snp_pileup": "host"}
+            if b != "device"} == {"snp_pileup": "host",
+                                  "ingest_inflate": "host"}
